@@ -7,20 +7,35 @@
 2. builds the CUDA kernels from tpu_smatcher_torch/csrc with nvcc;
 3. holds each kernel against its plain torch version on the card, exactly
    (integers: tolerance 0), over texts of up to 16 MiB, short and ragged
-   texts, long patterns and a match-dense text;
-4. drives the main path, make_fast(pats).count(text), over bench.py's five
-   tiers on its 256 MiB DNA corpus (seed 7): each count must equal the
-   4 MiB ground-truth gate on the prefix, the JAX package's logged
-   full-corpus count (BENCH_r05.json) and the plain versions' count, and
-   the kernels' launch counters must show the path went through them;
-5. times each tier (median per-scan over 5 reps, CUDA events) on the
-   kernel path and the plain path, and each kernel against its plain
-   version.
+   texts, long patterns, narrow and wide stages and match-dense texts;
+4. drives the main paths through make_fast / FastScanner, each with the
+   launch counters set to 0 just before it and read just after:
+   - bench.py's five tiers on its 256 MiB DNA corpus (seed 7): each count
+     equals the 4 MiB ground-truth gate on the prefix, the JAX package's
+     logged full-corpus count (BENCH_r05.json) and the plain versions'
+     count, on the cascade route with no retry;
+   - slot32: DNA m=32 p=1000, the slot route; the count equals the gate,
+     the plain versions' count and the cascade route's count;
+   - dense32: the slot32 text with pattern 0 planted every 256 bytes over
+     2 MiB; the scanner adapts through the sync ladder within 6 retries,
+     then counts on the dense mask pass without retrying, exact throughout;
+   - saturated: 4 MiB, p=10k at 4096-bit stages (no cascade split): the
+     mask route overflows and the budget-piece sync ladder counts exactly;
+5. times each path (median per-scan over 5 reps, CUDA events) on the
+   kernels and on the plain versions, each kernel against its plain version
+   and its bound, and words_view against one PyTorch call.  Each kernel is
+   first held against its plain version, exactly, on the inputs the main
+   paths gave it (the cascade at every bench tier's stages, filter_mask
+   at dense32's 7 and saturated's 32 stages).  A bound charges the work
+   the function needs (rolling fingerprints and window ids), not what the
+   kernels do today.
 
 Any failed check raises: the exit code is then non-zero and no result
 line is printed.  The last line is {"ok": true, "device": {...}}.
 """
 
+import contextlib
+import functools
 import json
 import statistics
 import subprocess
@@ -37,6 +52,45 @@ N_FULL = 1 << 28          # bench.py's 256 MiB corpus
 N_GATE = 1 << 22          # bench.py's 4 MiB correctness gate
 REPS = 5
 MiB = 1 << 20
+#: the slot32 / dense32 / saturated cells: m=32, bench.py's pattern seed
+M_CELL = 32
+PAT_SEED = 8 + M_CELL
+#: dense32's plants of pattern 0: every 256 bytes over [1 MiB, 3 MiB)
+PLANTS = range(MiB, 3 * MiB, 256)
+MAX_RETRIES = 6
+
+#: the kernel wrappers of tpu_smatcher_torch.ops.cuda_filter: (source,
+#: the TPU kernel it replaces)
+KERNELS = {
+    "exact_count": ("tpu_smatcher_torch/csrc/exact_count.cu",
+                    "tpu_smatcher/ops/pallas_filter.py:886"),
+    "cascade": ("tpu_smatcher_torch/csrc/cascade.cu",
+                "tpu_smatcher/ops/pallas_filter.py:758"),
+    "filter_mask": ("tpu_smatcher_torch/csrc/filter.cu",
+                    "tpu_smatcher/ops/pallas_filter.py:1052"),
+    "filter_slots": ("tpu_smatcher_torch/csrc/filter.cu",
+                     "tpu_smatcher/ops/pallas_filter.py:559"),
+    "words_view": ("tpu_smatcher_torch/csrc/words.cu",
+                   "tpu_smatcher/ops/pallas_filter.py:1011"),
+}
+
+#: peak rates of one H100 SXM at 700 W: HBM bytes/s, and int32 operations/s
+#: (half the 67 TFLOP/s float32 rate: 64 int32 lanes per SM against 128
+#: float32 ones; a multiply-add counts 2, as an FMA does)
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 33.5e12
+#: The bounds charge each function the operations it needs, not what the
+#: kernels do today.  The fingerprint multipliers are odd, so invertible mod
+#: 2^16, and a fingerprint rolls from one start to the next in O(1):
+#: fp(i) = fp(i+1) * M + t[i] - t[i+m] * M^m, two multiply-adds for each of
+#: the three (the kernels still run Horner's rule, 3m multiply-adds).
+ROLLING_FP_OPS = 3 * 2 * 2
+#: one stage test: key = f0 + C*f1 + D*f2 (2 multiply-adds), the mask, the
+#: word index and the bit test
+STAGE_TEST_OPS = 8
+#: one exact-tier start: the rolling window id (shift, or, mask), the bit
+#: test (word index, bit index, shift, and) and the sum
+EXACT_START_OPS = 8
 
 
 def log(msg):
@@ -75,11 +129,102 @@ def device_info():
     return smi
 
 
+@contextlib.contextmanager
+def plain_kernels():
+    """Every kernel wrapper replaced by its plain torch version, so the
+    main path's own code runs on the card without the kernels."""
+    from tpu_smatcher_torch.ops import cuda_filter as cf
+    saved = {k: getattr(cf, k) for k in KERNELS}
+    try:
+        for k in KERNELS:
+            setattr(cf, k, getattr(cf, f"{k}_plain"))
+        yield
+    finally:
+        for k, fn in saved.items():
+            setattr(cf, k, fn)
+
+
+def reset_launches():
+    from tpu_smatcher_torch.ops import cuda_filter as cf
+    for k in cf.LAUNCHES:
+        cf.LAUNCHES[k] = 0
+
+
+def read_launches(path, kernels, total):
+    """The counts of the path just driven; each of its kernels must have
+    launched.  Adds them to total."""
+    from tpu_smatcher_torch.ops import cuda_filter as cf
+    got = dict(cf.LAUNCHES)
+    log(f"  {path} launches: {got}")
+    for k in kernels:
+        assert got[k] > 0, f"{path}: {k} never launched"
+    for k, v in got.items():
+        total[k] += v
+
+
+# ---------------------------------------------------------------------------
+# bounds: the least time the card could take for a kernel's work
+# ---------------------------------------------------------------------------
+
+def bound(nbytes, ops):
+    """(ms, what bounds it): bytes over the HBM rate or int32 operations
+    over the int32 rate, whichever is larger."""
+    b = nbytes / HBM_BYTES_PER_S * 1e3
+    o = ops / INT32_OPS_PER_S * 1e3
+    return (b, "bytes") if b >= o else (o, "operations")
+
+
+def stage_tests(ft, k):
+    """Expected stage tests per start of a filter that stops at its first
+    miss over the first k stages: sum_s prod_{j<s} fill_j, from the
+    tables' measured fills (the text is uniform random)."""
+    fills = ft.stage_fills or (ft.density,) * len(ft.bitmaps)
+    tests, alive = 0.0, 1.0
+    for s in range(k):
+        tests += alive
+        alive *= fills[s]
+    return tests
+
+
+def fp_filter_ops(ft, n, k):
+    """int32 operations the fp-tier filters need over n bytes: per start,
+    three rolling fingerprint updates and the stage tests."""
+    return (n - ft.m + 1) * (ROLLING_FP_OPS
+                             + STAGE_TEST_OPS * stage_tests(ft, k))
+
+
+def stage_bytes(ft, k):
+    return k * ft.stage_bits // 8
+
+
+# ---------------------------------------------------------------------------
+# kernel vs plain
+# ---------------------------------------------------------------------------
+
 class Checks:
     """Kernel-vs-plain comparisons; every one must be exact."""
 
     def __init__(self):
-        self.max_err = {"exact_count": 0, "cascade": 0}
+        self.max_err = {k: 0 for k in KERNELS}
+
+    def _err(self, name, err, label):
+        self.max_err[name] = max(self.max_err[name], err)
+        assert err == 0, f"{name} kernel != plain on {label}"
+
+    def same(self, name, got, want, label):
+        """A kernel's output (a tensor or a tuple of them) against its plain
+        version's on the same inputs, exactly."""
+        import torch
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        err = 0
+        for g, w in zip(got, want, strict=True):
+            assert g.shape == w.shape, f"{name} shape on {label}"
+            if g.numel() and not torch.equal(g, w):
+                err = max(err, int((g.long() - w.long()).abs().max()))
+        log(f"  {name} {label}: kernel vs plain max_abs_err {err}")
+        self._err(name, err, label)
 
     def exact(self, label, text, pats):
         import torch
@@ -91,11 +236,9 @@ class Checks:
         torch.cuda.synchronize()
         p = int(cf.exact_count_plain(t, ft.bitmaps[0], m=ft.m,
                                      sigma=ft.sigma))
-        err = abs(k - p)
-        self.max_err["exact_count"] = max(self.max_err["exact_count"], err)
         log(f"  exact_count {label}: n={len(text)} m={ft.m} "
             f"sigma={ft.sigma} kernel={k} plain={p}")
-        assert err == 0, f"exact_count kernel != plain on {label}"
+        self._err("exact_count", abs(k - p), label)
 
     def cascade(self, label, text, pats, stage_bits=None, want_ovf=None):
         import torch
@@ -106,7 +249,7 @@ class Checks:
                         device="cuda")
         eng = FastScanner(ft)
         n = len(text)
-        _, k1, kt = eng._pick_path(n, stages_for(ft, n, eng.cap))
+        _, k1, kt = eng._route_costs(n, stages_for(ft, n, eng.cap))["cascade"]
         t = torch.from_numpy(text).cuda()
         args = dict(m=ft.m, k1=k1, cd=ft.cd(kt))
         ks, ko = cf.cascade(t, ft.bitmaps[:kt], **args)
@@ -114,18 +257,60 @@ class Checks:
         ps, po = cf.cascade_plain(t, ft.bitmaps[:kt], **args)
         err = max(int((ks.long() - ps.long()).abs().max()),
                   abs(int(ko) - int(po)))
-        self.max_err["cascade"] = max(self.max_err["cascade"], err)
         log(f"  cascade {label}: n={n} m={ft.m} sigma={ft.sigma} k1={k1} "
             f"kt={kt} survivors={int((ks >= 0).sum())} ovf={int(ko)}")
-        assert err == 0, f"cascade kernel != plain on {label}"
+        self._err("cascade", err, label)
         assert want_ovf is None or int(ko) == want_ovf, label
+
+    def filters(self, label, text, pats, stage_bits):
+        """filter_mask and filter_slots at k = 1 and 3, and words_view on
+        the aligned text and at a one-byte offset.  Returns the number of
+        sub-blocks that held more than BLOCK_SLOTS candidates."""
+        import torch
+        from tpu_smatcher_torch.ops import cuda_filter as cf
+        from tpu_smatcher_torch.ops.fast import build_fast, words_len
+        ft = build_fast(pats.codes, pats.sigma, stage_bits=stage_bits,
+                        device="cuda")
+        t = torch.from_numpy(text).cuda()
+        n = len(text)
+        crowded = 0
+        for k in (1, 3):
+            k = min(k, len(ft.bitmaps))
+            args = dict(m=ft.m, cd=ft.cd(k))
+            mask = cf.filter_mask(t, ft.bitmaps[:k], **args)
+            pos, counts = cf.filter_slots(t, ft.bitmaps[:k], **args)
+            torch.cuda.synchronize()
+            pm = cf.filter_mask_plain(t, ft.bitmaps[:k], **args)
+            pp, pc = cf.filter_slots_plain(t, ft.bitmaps[:k], **args)
+            self._err("filter_mask", int((mask.int() - pm.int()).abs().max()),
+                      label)
+            self._err("filter_slots",
+                      max(int((pos.long() - pp.long()).abs().max()),
+                          int((counts.long() - pc.long()).abs().max())),
+                      label)
+            assert int(counts.sum()) == int(mask.sum()), label
+            over = int((counts > cf.BLOCK_SLOTS).sum())
+            crowded += over
+            log(f"  filter {label}: n={n} m={ft.m} sigma={ft.sigma} "
+                f"stage_bits={ft.stage_bits} k={k} "
+                f"candidates={int(counts.sum())} sub-blocks over 16: {over}")
+        nw = words_len(n, ft.words)
+        for off in (0, 1):
+            tt = t[off:]
+            got = cf.words_view(tt, nw)
+            torch.cuda.synchronize()
+            want = cf.words_view_plain(tt, nw)
+            self._err("words_view",
+                      int((got.long() - want.long()).abs().max()),
+                      f"{label} offset {off}")
+        return crowded
 
 
 def kernel_checks():
     import numpy as np
-    from tpu_smatcher.core import datagen
-    from tpu_smatcher.core.alphabet import Alphabet
-    from tpu_smatcher.core.patterns import PatternSet
+    from tpu_smatcher_torch.core import datagen
+    from tpu_smatcher_torch.core.alphabet import Alphabet
+    from tpu_smatcher_torch.core.patterns import PatternSet
 
     def case(sigma, n, m, p, seed):
         ab = Alphabet.of_size(sigma)
@@ -154,108 +339,350 @@ def kernel_checks():
     text, pats = case(20, 20_000, 16, 3000, seed=3)
     for n in (16, 100, 1000, 1001):                        # n=m, n<128, ragged
         ck.cascade(f"short n={n}", text[:n].copy(), pats)
-    text, pats = case(4, 4 * MiB, 32, 3000, seed=5)
-    text[len(text) // 4:len(text) // 4 + 4000] = 0         # match-dense run
+    dense_text, pats = case(4, 4 * MiB, 32, 3000, seed=5)
+    run = len(dense_text) // 4
+    dense_text[run:run + 4000] = 0                         # match-dense run
     codes = pats.codes.copy()
     codes[0] = 0
-    ck.cascade("match-dense", text, PatternSet(codes, pats.alphabet),
-               stage_bits=32768, want_ovf=1)
+    dense_pats = PatternSet(codes, pats.alphabet)
+    ck.cascade("match-dense", dense_text, dense_pats, stage_bits=32768,
+               want_ovf=1)
+
+    log("kernel vs plain (filter_mask, filter_slots, words_view, "
+        "tolerance 0):")
+    crowded = 0
+    for sigma, m in ((20, 8), (4, 16), (4, 32), (4, 129), (4, 513)):
+        for n, stage_bits in ((16 * MiB + 77, 4096), (MiB + 3, 131072)):
+            text, pats = case(sigma, n, m, 3000, seed=m + sigma + 1)
+            crowded += ck.filters(f"sigma={sigma}", text, pats, stage_bits)
+    text, pats = case(20, 20_000, 16, 3000, seed=3)
+    for n in (16, 100, 1001):                              # n=m, n<128, ragged
+        for stage_bits in (4096, 131072):
+            ck.filters(f"short n={n}", text[:n].copy(), pats, stage_bits)
+    ck.filters("match-dense", dense_text, dense_pats, 32768)
+    assert crowded > 0, "no sub-block held more than 16 candidates"
     return ck
 
 
-def plain_device_count(eng, t):
-    """The main path with both kernels replaced by their plain versions,
-    followed by the same compaction and verify: (count, overflow)."""
-    from tpu_smatcher_torch.ops import cuda_filter as cf
-    from tpu_smatcher_torch.ops.fast import count_from_slots, stages_for
-    ft = eng.ft
-    if ft.exact:
-        return cf.exact_count_plain(t, ft.bitmaps[0], m=ft.m,
-                                    sigma=ft.sigma), 0
+# ---------------------------------------------------------------------------
+# the main paths
+# ---------------------------------------------------------------------------
+
+def plain_count(eng, t):
+    """The scanner's current async pass with every kernel replaced by its
+    plain version: (count, overflow) as python values."""
+    with plain_kernels():
+        fn = eng._device_count_dense if eng._match_dense else \
+            eng._device_count
+        c, o = fn(t)
+        return int(c), int(o)
+
+
+def cascade_route_count(ft, t):
+    """The cascade route's count of t, forced past the router: the route's
+    own function with the stage counts its cost entry gives."""
+    from tpu_smatcher_torch.ops.fast import FastScanner, stages_for
+    eng = FastScanner(ft)
     n = int(t.shape[0])
-    _, k1, kt = eng._pick_path(n, stages_for(ft, n, eng.cap))
-    slots, ovf = cf.cascade_plain(t, ft.bitmaps[:kt], m=ft.m, k1=k1,
-                                  cd=ft.cd(kt))
-    return count_from_slots(ft, t, slots, ovf, cap=eng.cap)
+    _, k1, kt = eng._route_costs(n, stages_for(ft, n, eng.cap))["cascade"]
+    c, o = eng._route_count(t, "cascade", k1, kt)
+    return int(c), int(o)
 
 
-def main_path():
-    import torch
-    from tpu_smatcher.core import datagen
-    from tpu_smatcher.core.alphabet import Alphabet
-    from tpu_smatcher_torch import make_fast
-    from tpu_smatcher_torch.ops import cuda_filter as cf
+def route_of(eng, n):
     from tpu_smatcher_torch.ops.fast import stages_for
+    if eng.ft.exact:
+        return "exact"
+    return eng._pick_path(n, stages_for(eng.ft, n, eng.cap))
+
+
+def tiers_path(text, tdev, total):
+    """bench.py's five tiers through make_fast(pats).count."""
+    from tpu_smatcher_torch import make_fast
+    from tpu_smatcher_torch.core import datagen
+    from tpu_smatcher_torch.core.alphabet import Alphabet
 
     ab = Alphabet.dna()
-    t0 = time.perf_counter()
-    text = datagen.generate_text(N_FULL, ab, seed=7)
-    tdev = torch.from_numpy(text).cuda()
-    log(f"corpus: {N_FULL} bytes DNA seed 7 "
-        f"({time.perf_counter() - t0:.1f} s to make)")
-    engines = []
-    for k in cf.LAUNCHES:
-        cf.LAUNCHES[k] = 0
+    engines, checks = [], []
+    reset_launches()
     for name, m, p, anchor in TIERS:
         pats = datagen.generate_patterns(text, p, m, ab, frac_present=0.5,
                                          seed=8 if m == 8 else 8 + m)
-        truth = datagen.count_matches(text[:N_GATE], pats)
         eng = make_fast(pats)
-        kname = "exact_count" if eng.ft.exact else "cascade"
-        before = cf.LAUNCHES[kname]
         gate = eng.count(tdev[:N_GATE])
         full = eng.count(tdev)
-        c, o = plain_device_count(eng, tdev)
-        plain = int(c)
-        route = ("exact" if eng.ft.exact else
-                 eng._pick_path(N_FULL, stages_for(eng.ft, N_FULL, eng.cap)))
-        log(f"tier {name} (m={m} p={p}) route={route}: gate {gate} "
-            f"(truth {truth}), full {full} (anchor {anchor}), plain {plain}, "
-            f"{kname} launches {cf.LAUNCHES[kname] - before}, "
-            f"fallback_scans {eng.fallback_scans}")
+        engines.append((name, eng))
+        checks.append((name, pats, anchor, gate, full))
+    read_launches("tiers", ("exact_count", "cascade", "words_view"), total)
+    for (name, pats, anchor, gate, full), (_, eng) in zip(checks, engines):
+        truth = datagen.count_matches(text[:N_GATE], pats)
+        plain, o = plain_count(eng, tdev)
+        route = route_of(eng, N_FULL)
+        log(f"tier {name} (m={pats.m} p={pats.p_size}) route={route}: gate "
+            f"{gate} (truth {truth}), full {full} (anchor {anchor}), plain "
+            f"{plain}, fallback_scans {eng.fallback_scans}")
         assert gate == truth, f"{name}: 4 MiB gate {gate} != {truth}"
         assert full == anchor, f"{name}: full count {full} != {anchor}"
-        assert plain == full and not int(o), f"{name}: plain {plain} != {full}"
-        assert cf.LAUNCHES[kname] >= before + 2, f"{name}: kernel not launched"
+        assert plain == full and not o, f"{name}: plain {plain} != {full}"
+        assert route == "exact" or route[0] == "cascade", f"{name}: {route}"
         assert eng.fallback_scans == 0, f"{name}: overflow retry taken"
-        engines.append((name, eng))
-    launches = dict(cf.LAUNCHES)
-    assert all(launches.values()), f"a kernel never launched: {launches}"
-    return tdev, engines, launches
+    return engines
 
 
-def timings(card, tdev, engines):
-    """Per tier: main path on the kernels vs on the plain versions, and
-    each kernel alone vs its plain version, at the tier's shapes."""
+def slot32_path(text, tdev, total):
+    """DNA m=32 p=1000 with default tables: the slot route."""
+    from tpu_smatcher_torch import make_fast
+    from tpu_smatcher_torch.core import datagen
+    from tpu_smatcher_torch.core.alphabet import Alphabet
+
+    pats = datagen.generate_patterns(text, 1000, M_CELL, Alphabet.dna(),
+                                     frac_present=0.5, seed=PAT_SEED)
+    reset_launches()
+    eng = make_fast(pats)
+    gate = eng.count(tdev[:N_GATE])
+    full = eng.count(tdev)
+    read_launches("slot32", ("filter_slots", "words_view"), total)
+    truth = datagen.count_matches(text[:N_GATE], pats)
+    plain, o = plain_count(eng, tdev)
+    casc, co = cascade_route_count(eng.ft, tdev)
+    route = route_of(eng, N_FULL)
+    log(f"slot32 (m={M_CELL} p=1000) route={route}: gate {gate} (truth "
+        f"{truth}), full {full}, plain {plain}, cascade route {casc}, "
+        f"fallback_scans {eng.fallback_scans}")
+    assert route[0] == "slot", f"slot32 routed {route}"
+    assert gate == truth, f"slot32: gate {gate} != {truth}"
+    assert plain == full and not o, f"slot32: plain {plain} != {full}"
+    assert casc == full and not co, f"slot32: cascade {casc} != {full}"
+    assert eng.fallback_scans == 0, "slot32: overflow retry taken"
+    return pats, eng, gate, full
+
+
+def dense32_path(text, tdev, pats, gate0, full0, total):
+    """The slot32 text with pattern 0 planted every 256 bytes over 2 MiB:
+    the scanner's first scans overflow the slot route's sub-blocks and
+    retry through the sync ladder; it adapts within MAX_RETRIES and then
+    counts on the dense mask pass without retrying."""
+    import torch
+    from tpu_smatcher_torch import make_fast
+    from tpu_smatcher_torch.core import datagen
+
+    p0 = pats.codes[0]
+    idx = (torch.arange(PLANTS.start, PLANTS.stop, PLANTS.step,
+                        device="cuda")[:, None]
+           + torch.arange(M_CELL, device="cuda"))
+    t2 = tdev.clone()
+    t2[idx] = torch.from_numpy(p0).cuda()
+    prefix = datagen.plant(text[:N_GATE], p0, PLANTS)
+    gate_truth = datagen.count_matches(prefix, pats)
+    # every planted byte lies in the 4 MiB prefix, and so does every
+    # window over one: the full count moves by the prefix's change
+    truth = full0 + gate_truth - gate0
+    reset_launches()
+    eng = make_fast(pats)
+    counts, scans = [], []
+    for _ in range(MAX_RETRIES + 1):
+        before = eng.fallback_scans
+        counts.append(eng.count(t2))
+        scans.append(eng.fallback_scans)
+        if eng.fallback_scans == before:
+            break
+    retries = eng.fallback_scans
+    steady = [eng.count(t2) for _ in range(3)]
+    gate = make_fast(pats).count(t2[:N_GATE])
+    read_launches("dense32", ("filter_slots", "filter_mask", "words_view"),
+                  total)
+    plain, o = plain_count(eng, t2)
+    casc, co = cascade_route_count(eng.ft, t2)
+    log(f"dense32 ({len(PLANTS)} plants of pattern 0): gate {gate} (truth "
+        f"{gate_truth}), counts {counts} then {steady} (truth {truth}), "
+        f"fallback_scans after each {scans}, _k_extra {eng._k_extra}, "
+        f"_match_dense {eng._match_dense}, plain {plain}, cascade route "
+        f"{casc}")
+    assert gate == gate_truth, f"dense32: gate {gate} != {gate_truth}"
+    assert counts + steady == [truth] * (len(counts) + 3), "dense32 count"
+    assert 1 <= retries <= MAX_RETRIES, f"dense32: {retries} retries"
+    assert eng._match_dense, "dense32 did not switch to the dense pass"
+    assert eng.fallback_scans == retries, "dense32 kept retrying"
+    assert plain == truth and not o, f"dense32: plain {plain} != {truth}"
+    assert casc == truth and not co, f"dense32: cascade {casc} != {truth}"
+    return eng, t2
+
+
+def saturated_path(text, tdev, total):
+    """4 MiB, p=10k at 4096-bit stages: every stage ~0.9 full, no cascade
+    split; the mask route overflows and the sync ladder scans budget-sized
+    pieces on the dense pass."""
+    from tpu_smatcher_torch.core import datagen
+    from tpu_smatcher_torch.core.alphabet import Alphabet
+    from tpu_smatcher_torch.ops.fast import FastScanner, build_fast, stages_for
+
+    pats = datagen.generate_patterns(text, 10_000, M_CELL, Alphabet.dna(),
+                                     frac_present=0.5, seed=PAT_SEED)
+    t3 = tdev[:N_GATE]
+    reset_launches()
+    eng = FastScanner(build_fast(pats.codes, 4, stage_bits=4096,
+                                 device="cuda"))
+    got = eng.count(t3)
+    read_launches("saturated", ("filter_mask", "words_view"), total)
+    ft = eng.ft
+    k = stages_for(ft, N_GATE, eng.cap)
+    pieces = N_GATE * ft.density ** k > eng.cap / 4 and k >= len(ft.bitmaps)
+    truth = datagen.count_matches(text[:N_GATE], pats)
+    with plain_kernels():
+        plain = FastScanner(ft).count(t3)
+    log(f"saturated (4 MiB, p=10k, 4096-bit stages, fill {ft.density:.3f}, "
+        f"{len(ft.bitmaps)} stages) route={route_of(eng, N_GATE)}: count "
+        f"{got} (truth {truth}), plain {plain}, budget pieces {pieces}, "
+        f"fallback_scans {eng.fallback_scans}")
+    assert route_of(eng, N_GATE)[0] == "mask"
+    assert pieces and eng.fallback_scans == 1, "saturated: not the ladder"
+    assert got == truth == plain, f"saturated: {got} / {plain} != {truth}"
+    return eng, t3
+
+
+# ---------------------------------------------------------------------------
+# timings
+# ---------------------------------------------------------------------------
+
+def path_times(card, label, eng, t, scan):
+    """Main path ms/scan on the kernels and on the plain versions, and a
+    torch.profiler breakdown of the kernel path."""
+    n = int(t.shape[0])
+    k_ms = cuda_ms(lambda: scan(eng, t))
+    with plain_kernels():
+        p_ms = cuda_ms(lambda: scan(eng, t))
+    log(f"[{card}] {label}: main path {k_ms:.3f} ms/scan "
+        f"({n / k_ms / 1e6:.2f} GB/s) on the kernels, {p_ms:.3f} ms/scan "
+        f"({n / p_ms / 1e6:.2f} GB/s) on the plain versions")
+    profile(card, label, lambda: scan(eng, t))
+
+
+def profile(card, label, fn, reps=3):
+    """Per scan: wall time (host clock), device busy time (the sum of the
+    device's kernel and copy events), the share of the wall the device
+    idles, and the three device events that take most."""
+    import collections
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / reps
+    dev = collections.Counter()
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            dev[e.name] += e.time_range.elapsed_us() / 1e3 / reps
+    busy = sum(dev.values())
+    top = ", ".join(f"{name[:48]} {ms:.3f} ms"
+                    for name, ms in dev.most_common(3))
+    log(f"[{card}] {label} profile: wall {wall:.3f} ms/scan, device busy "
+        f"{busy:.3f} ms, idle share {1 - busy / wall:.3f}; top: {top}")
+
+
+def kernel_time(card, ck, label, name, kern, plain, bnd, library=None):
+    """Holds the kernel against its plain version on the main path's inputs
+    (exactly), then times both and the library call."""
+    ck.same(name, kern(), plain(), f"{label} (main-path inputs)")
+    ms, p_ms = cuda_ms(kern), cuda_ms(plain)
+    lib_ms = cuda_ms(library) if library is not None else None
+    log(f"[{card}] {label}: {name} kernel {ms:.3f} ms vs plain {p_ms:.3f} ms"
+        f", bound {bnd[0]:.4f} ms by {bnd[1]}"
+        + (f", library call {lib_ms:.3f} ms" if library is not None else ""))
+    return {"ms": ms, "plain_ms": p_ms, "bound_ms": bnd[0],
+            "bound_by": bnd[1], "library_ms": lib_ms}
+
+
+def timings(card, ck, tdev, engines, slot_eng, dense, sat):
+    import torch
+    import torch.nn.functional as F
     from tpu_smatcher_torch.ops import cuda_filter as cf
-    from tpu_smatcher_torch.ops.fast import stages_for
+    from tpu_smatcher_torch.ops.fast import stages_for, words_len
+
+    def async_scan(eng, t):
+        return eng.count_async(t).result()
+
+    def sync_scan(eng, t):
+        return eng.count(t)
+
     per_kernel = {}
     n = int(tdev.shape[0])
     for name, eng in engines:
         ft = eng.ft
-        path_ms = cuda_ms(lambda: eng.count_async(tdev).result())
-        plain_ms = cuda_ms(lambda: int(plain_device_count(eng, tdev)[0]))
+        path_times(card, f"tier {name}", eng, tdev, async_scan)
         if ft.exact:
-            kname = "exact_count"
-            kern = lambda: cf.exact_count(tdev, ft.bitmaps[0], m=ft.m,
-                                          sigma=ft.sigma)
-            plain = lambda: cf.exact_count_plain(tdev, ft.bitmaps[0],
-                                                 m=ft.m, sigma=ft.sigma)
-        else:
-            kname = "cascade"
-            _, k1, kt = eng._pick_path(n, stages_for(ft, n, eng.cap))
-            args = dict(m=ft.m, k1=k1, cd=ft.cd(kt))
-            kern = lambda: cf.cascade(tdev, ft.bitmaps[:kt], **args)
-            plain = lambda: cf.cascade_plain(tdev, ft.bitmaps[:kt], **args)
-        k_ms, kp_ms = cuda_ms(kern), cuda_ms(plain)
-        log(f"[{card}] tier {name}: main path {path_ms:.3f} ms/scan "
-            f"({n / path_ms / 1e6:.2f} GB/s) on the kernels, "
-            f"{plain_ms:.3f} ms/scan ({n / plain_ms / 1e6:.2f} GB/s) on the "
-            f"plain versions; {kname} kernel {k_ms:.3f} ms vs plain "
-            f"{kp_ms:.3f} ms")
-        # the kernel's reported time: the flagship tier of each kernel
-        if name in ("exact", "fp"):
-            per_kernel[kname] = (k_ms, kp_ms)
+            per_kernel["exact_count"] = kernel_time(
+                card, ck, f"tier {name}", "exact_count",
+                lambda: cf.exact_count(tdev, ft.bitmaps[0], m=ft.m,
+                                       sigma=ft.sigma),
+                lambda: cf.exact_count_plain(tdev, ft.bitmaps[0], m=ft.m,
+                                             sigma=ft.sigma),
+                bound(n + ft.bitmaps[0].numel() * 4 + 4,
+                      (n - ft.m + 1) * EXACT_START_OPS))
+            continue
+        _, k1, kt = route_of(eng, n)
+        args = dict(m=ft.m, k1=k1, cd=ft.cd(kt))
+        kern = functools.partial(cf.cascade, tdev, ft.bitmaps[:kt], **args)
+        plain = functools.partial(cf.cascade_plain, tdev, ft.bitmaps[:kt],
+                                  **args)
+        if name != "fp":            # every tier's shapes held, one timed
+            ck.same("cascade", kern(), plain(),
+                    f"tier {name} k1={k1} kt={kt} (main-path inputs)")
+            continue
+        rows = -(-(n - ft.m + 1) // cf.ROW)
+        per_kernel["cascade"] = kernel_time(
+            card, ck, f"tier {name}", "cascade", kern, plain,
+            bound(n + stage_bytes(ft, kt) + rows * cf.ROW_SLOTS * 4 + 4,
+                  fp_filter_ops(ft, n, k1)))
+
+    ft = slot_eng.ft
+    path_times(card, "slot32", slot_eng, tdev, async_scan)
+    _, _, ks = route_of(slot_eng, n)
+    args = dict(m=ft.m, cd=ft.cd(ks))
+    n_sub = -(-(n - ft.m + 1) // cf.SUB_BLOCK)
+    per_kernel["filter_slots"] = kernel_time(
+        card, ck, "slot32", "filter_slots",
+        lambda: cf.filter_slots(tdev, ft.bitmaps[:ks], **args),
+        lambda: cf.filter_slots_plain(tdev, ft.bitmaps[:ks], **args),
+        bound(n + stage_bytes(ft, ks) + n_sub * (cf.BLOCK_SLOTS + 1) * 4,
+              fp_filter_ops(ft, n, ks)))
+    nw = words_len(n, ft.words)
+    per_kernel["words_view"] = kernel_time(
+        card, ck, "slot32", "words_view",
+        lambda: cf.words_view(tdev, nw),
+        lambda: cf.words_view_plain(tdev, nw),
+        bound(n + 4 * nw, 0),
+        library=lambda: F.pad(tdev, (0, 4 * nw - n)).view(torch.int32))
+
+    d_eng, t2 = dense
+    path_times(card, "dense32 (dense pass)", d_eng, t2, async_scan)
+    ft = d_eng.ft
+    k = stages_for(ft, n, d_eng.cap)
+    args = dict(m=ft.m, cd=ft.cd(k))
+    rows = -(-(n - ft.m + 1) // cf.ROW)
+    per_kernel["filter_mask"] = kernel_time(
+        card, ck, "dense32", "filter_mask",
+        lambda: cf.filter_mask(t2, ft.bitmaps[:k], **args),
+        lambda: cf.filter_mask_plain(t2, ft.bitmaps[:k], **args),
+        bound(n + stage_bytes(ft, k) + rows * cf.ROW, fp_filter_ops(ft, n, k)))
+
+    s_eng, t3 = sat
+    path_times(card, "saturated (count, with the sync ladder)", s_eng, t3,
+               sync_scan)
+    ft = s_eng.ft
+    n3 = int(t3.shape[0])
+    k = stages_for(ft, n3, s_eng.cap)
+    args = dict(m=ft.m, cd=ft.cd(k))
+    kernel_time(card, ck, f"saturated k={k}", "filter_mask",
+                lambda: cf.filter_mask(t3, ft.bitmaps[:k], **args),
+                lambda: cf.filter_mask_plain(t3, ft.bitmaps[:k], **args),
+                bound(n3 + stage_bytes(ft, k) + -(-(n3 - ft.m + 1) // cf.ROW)
+                      * cf.ROW, fp_filter_ops(ft, n3, k)))
     return per_kernel
 
 
@@ -267,24 +694,33 @@ def main() -> int:
     card = device_info()
     log(f"card: {card}")
     from tpu_smatcher_torch import _build
+    from tpu_smatcher_torch.core import datagen
+    from tpu_smatcher_torch.core.alphabet import Alphabet
     t0 = time.perf_counter()
     _build.build(verbose=True)
     _build.load()
     log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
 
     ck = kernel_checks()
-    tdev, engines, launches = main_path()
-    per_kernel = timings(card, tdev, engines)
+    log(f"kernel checks done at {time.perf_counter() - t0:.1f} s")
 
-    source = {"exact_count": ("tpu_smatcher_torch/csrc/exact_count.cu",
-                              "tpu_smatcher/ops/pallas_filter.py:886"),
-              "cascade": ("tpu_smatcher_torch/csrc/cascade.cu",
-                          "tpu_smatcher/ops/pallas_filter.py:758")}
-    kernels = [{"name": k, "route": "cuda", "source": source[k][0],
-                "replaces": source[k][1], "launches": launches[k],
-                "max_abs_err": ck.max_err[k], "ms": per_kernel[k][0],
-                "plain_ms": per_kernel[k][1]} for k in ("exact_count",
-                                                        "cascade")]
+    text = datagen.generate_text(N_FULL, Alphabet.dna(), seed=7)
+    tdev = torch.from_numpy(text).cuda()
+    log(f"corpus: {N_FULL} bytes DNA seed 7 "
+        f"({time.perf_counter() - t0:.1f} s)")
+    total = {k: 0 for k in KERNELS}
+    engines = tiers_path(text, tdev, total)
+    pats, slot_eng, gate0, full0 = slot32_path(text, tdev, total)
+    dense = dense32_path(text, tdev, pats, gate0, full0, total)
+    sat = saturated_path(text, tdev, total)
+    log(f"main paths done at {time.perf_counter() - t0:.1f} s; launches "
+        f"{total}")
+    per_kernel = timings(card, ck, tdev, engines, slot_eng, dense, sat)
+    log(f"timings done at {time.perf_counter() - t0:.1f} s")
+
+    kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
+                "launches": total[k], "max_abs_err": ck.max_err[k],
+                **per_kernel[k]} for k, (src, rep) in KERNELS.items()]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
 """PyTorch port on the card: each CUDA kernel equals its plain torch
-version bit for bit, and the slice counts exactly through the kernels.
+version bit for bit, and every route of the slice counts exactly through
+the kernels without waiting for the device.
 
 These tests need a CUDA device and skip without one.  They import no JAX,
 so they run where only the port is installed:
@@ -10,9 +11,8 @@ so they run where only the port is installed:
 import pytest
 import torch
 
-from tpu_smatcher.core import datagen
-
 from tpu_smatcher_torch import make_fast
+from tpu_smatcher_torch.core import datagen
 from tpu_smatcher_torch.ops import cuda_filter as cf
 from tpu_smatcher_torch.ops import fast as tfast
 
@@ -47,7 +47,8 @@ def _check_cascade(cuda, text, pats, stage_bits=None):
                            device=cuda)
     eng = tfast.FastScanner(tft)
     n = len(text)
-    _, k1, kt = eng._pick_path(n, tfast.stages_for(tft, n, eng.cap))
+    _, k1, kt = eng._route_costs(n, tfast.stages_for(tft, n, eng.cap))[
+        "cascade"]
     t = torch.from_numpy(text).to(cuda)
     before = cf.LAUNCHES["cascade"]
     slots, ovf = cf.cascade(t, tft.bitmaps[:kt], m=pats.m, k1=k1,
@@ -73,16 +74,79 @@ def test_cascade_kernel_overflow_matches_plain(cuda):
     assert _check_cascade(cuda, text, pats, stage_bits=32768) == 1
 
 
+def _filter_case(sigma, m, stage_bits):
+    text, pats = make_case(sigma, m, 3000, 200_003, seed=m + sigma)
+    return text, tfast.build_fast(pats.codes, sigma, stage_bits=stage_bits,
+                                  device="cuda")
+
+
+@pytest.mark.parametrize("stage_bits", [4096, 131072])
+@pytest.mark.parametrize("m,sigma", [(8, 20), (16, 4), (32, 4), (129, 4),
+                                     (513, 4)])
+def test_filter_kernels_match_plain(cuda, m, sigma, stage_bits):
+    """filter_mask, filter_slots and words_view equal their plain versions
+    bit for bit, on short, ragged and long texts, with k = 1 (sub-blocks
+    over their 16 slots at 4096-bit stages) and k = 3."""
+    text, ft = _filter_case(sigma, m, stage_bits)
+    for n in sorted({m, max(m, 127), max(m, 1001), 200_003}):
+        t = torch.from_numpy(text[:n].copy()).to(cuda)
+        for k in (1, 3):
+            args = dict(m=m, cd=ft.cd(k))
+            before = dict(cf.LAUNCHES)
+            mask = cf.filter_mask(t, ft.bitmaps[:k], **args)
+            pos, counts = cf.filter_slots(t, ft.bitmaps[:k], **args)
+            torch.cuda.synchronize()
+            assert cf.LAUNCHES["filter_mask"] == before["filter_mask"] + 1
+            assert cf.LAUNCHES["filter_slots"] == before["filter_slots"] + 1
+            assert torch.equal(mask, cf.filter_mask_plain(
+                t, ft.bitmaps[:k], **args))
+            pp, pc = cf.filter_slots_plain(t, ft.bitmaps[:k], **args)
+            assert torch.equal(pos, pp) and torch.equal(counts, pc)
+            assert int(counts.sum()) == int(mask.sum())
+        nw = tfast.words_len(n, ft.words)
+        for off in (0, 1):                     # aligned and unaligned text
+            tt = t[off:]
+            got = cf.words_view(tt, nw)
+            assert torch.equal(got, cf.words_view_plain(tt, nw))
+
+
 @pytest.mark.parametrize("sigma,m,p_size,n", CASES)
 def test_slice_on_the_card(cuda, sigma, m, p_size, n):
+    """make_fast on the card counts exactly through the routed kernel, and
+    the fingerprint routes verify over the words_view kernel."""
     text, pats = make_case(sigma, m, p_size, n, seed=3 * sigma + m)
     eng = make_fast(pats, device=cuda)
-    name = "exact_count" if eng.ft.exact else "cascade"
-    before = cf.LAUNCHES[name]
+    if eng.ft.exact:
+        names = ["exact_count"]
+    else:
+        path = eng._pick_path(n, tfast.stages_for(eng.ft, n, eng.cap))[0]
+        names = [ROUTE_KERNEL[path], "words_view"]
+    before = dict(cf.LAUNCHES)
     assert eng.count(torch.from_numpy(text).to(cuda)) == \
         datagen.count_matches(text, pats)
-    assert cf.LAUNCHES[name] == before + 1
+    for name in names:
+        assert cf.LAUNCHES[name] == before[name] + 1, name
     assert eng.fallback_scans == 0
+
+
+#: the filter kernel of each fingerprint route
+ROUTE_KERNEL = {"slot": "filter_slots", "cascade": "cascade",
+                "mask": "filter_mask"}
+
+
+def test_slot_route_on_the_card(cuda):
+    """A DNA m=32 p=1000 set takes the slot route: filter_slots and
+    words_view launch, and the count is exact."""
+    text, pats = make_case(4, 32, 1000, 1 << 20, seed=40)
+    eng = make_fast(pats, device=cuda)
+    n = len(text)
+    assert eng._pick_path(n, tfast.stages_for(eng.ft, n, eng.cap))[0] == \
+        "slot"
+    before = dict(cf.LAUNCHES)
+    assert eng.count(torch.from_numpy(text).to(cuda)) == \
+        datagen.count_matches(text, pats)
+    assert cf.LAUNCHES["filter_slots"] > before["filter_slots"]
+    assert cf.LAUNCHES["words_view"] > before["words_view"]
 
 
 def test_wide_case_on_the_card(cuda):
@@ -92,25 +156,60 @@ def test_wide_case_on_the_card(cuda):
     assert eng.count(torch.from_numpy(text).to(cuda)) == \
         datagen.count_matches(text, pats)
     assert eng.fallback_scans == 0
+    # the match run overflows the cascade's rows: the retry is exact and,
+    # as in the JAX package, switches the scanner to the dense pass, which
+    # then counts without retrying
     text, pats = dense_case()
     eng = tfast.FastScanner(tfast.build_fast(pats.codes, 4, stage_bits=32768,
                                              device=cuda))
-    assert eng.count(torch.from_numpy(text).to(cuda)) == \
-        datagen.count_matches(text, pats)
-    assert eng.fallback_scans == 1
-
-
-@pytest.mark.parametrize("case", [CASES[2], CASES[4]])
-def test_count_async_does_not_wait_for_the_device(cuda, case):
-    """count_async only enqueues: no torch op in it synchronises."""
-    sigma, m, p_size, n = case
-    text, pats = make_case(sigma, m, p_size, n, seed=3 * sigma + m)
-    eng = make_fast(pats, device=cuda)
     t = torch.from_numpy(text).to(cuda)
+    truth = datagen.count_matches(text, pats)
+    assert eng.count(t) == truth
+    assert eng.fallback_scans == 1
+    assert (eng._k_extra, eng._match_dense) == (0, True)
+    assert eng.count_with_overflow(t) == (truth, False)
+    assert eng.count(t) == truth and eng.fallback_scans == 1
+
+
+def _sync_free_case(kind):
+    """(scanner, text tensor, truth) whose count_async runs the given
+    route or the dense pass."""
+    if kind in ("exact", "slot"):
+        sigma, m, p_size, n = CASES[2] if kind == "exact" else CASES[4]
+        text, pats = make_case(sigma, m, p_size, n, seed=3 * sigma + m)
+        eng = make_fast(pats, device="cuda")
+    elif kind == "cascade":
+        text, pats = wide_case(0.02)
+        eng = tfast.FastScanner(tfast.build_fast(
+            pats.codes, 4, stage_bits=32768, device="cuda"), cap=1 << 14)
+    elif kind == "mask":
+        text, pats = make_case(4, 32, 10_000, 1 << 15, seed=21)
+        eng = tfast.FastScanner(tfast.build_fast(
+            pats.codes, 4, stage_bits=4096, device="cuda"))
+    else:                                      # the dense pass
+        text, pats = dense_case()
+        eng = tfast.FastScanner(tfast.build_fast(
+            pats.codes, 4, stage_bits=32768, device="cuda"))
+        eng._match_dense = True
+    return eng, torch.from_numpy(text).cuda(), datagen.count_matches(text,
+                                                                     pats)
+
+
+@pytest.mark.parametrize("kind", ["exact", "slot", "cascade", "mask",
+                                  "dense"])
+def test_count_async_does_not_wait_for_the_device(cuda, kind):
+    """count_async only enqueues: no torch op in it synchronises, on every
+    route and on the dense pass."""
+    eng, t, truth = _sync_free_case(kind)
     eng.count(t)                               # warm: lazy build and caches
+    if kind not in ("exact", "dense"):
+        eng._match_dense = False               # the warm scan may adapt
+        n = int(t.shape[0])
+        assert eng._pick_path(n, tfast.stages_for(eng.ft, n, eng.cap))[0] \
+            == kind
     torch.cuda.set_sync_debug_mode("error")
     try:
         fut = eng.count_async(t)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert fut.result() == datagen.count_matches(text, pats)
+    assert fut.result() == truth

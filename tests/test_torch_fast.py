@@ -1,7 +1,7 @@
 """PyTorch port, the slice as a whole: make_fast(pats, device=...).count
-equals the JAX package and the ground truth; overflow retries are exact
-and visible; the port never imports JAX and never falls back silently.
-All integer: tolerance 0."""
+equals the JAX package and the ground truth; overflow retries are exact,
+visible and adapt as the JAX package's do; the port imports nothing of the
+JAX package and never falls back silently.  All integer: tolerance 0."""
 
 import os
 import subprocess
@@ -11,17 +11,18 @@ import numpy as np
 import pytest
 import torch
 
-from tpu_smatcher.core import datagen
-from tpu_smatcher.core.alphabet import Alphabet
-from tpu_smatcher.core.patterns import PatternSet
+from tpu_smatcher.core import datagen as jdatagen
 from tpu_smatcher.engines import make_fast as jax_make_fast
 from tpu_smatcher.ops import fast as jfast
 
 import tpu_smatcher_torch
 from tpu_smatcher_torch import _build, make_fast
+from tpu_smatcher_torch.core import datagen
+from tpu_smatcher_torch.core.alphabet import Alphabet
+from tpu_smatcher_torch.core.patterns import PatternSet
 from tpu_smatcher_torch.ops import fast as tfast
 
-from torch_cases import CASES, dense_case, make_case, wide_case
+from torch_cases import CASES, dense_case, jax_pats, make_case, wide_case
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -30,7 +31,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def test_slice_matches_jax(sigma, m, p_size, n):
     text, pats = make_case(sigma, m, p_size, n, seed=3 * sigma + m)
     truth = datagen.count_matches(text, pats)
-    jeng = jax_make_fast(pats, tile=1 << 14, cap=1 << 12, backend="xla")
+    jeng = jax_make_fast(jax_pats(pats), tile=1 << 14, cap=1 << 12,
+                         backend="xla")
     eng = make_fast(pats, device="cpu")
     assert eng.ft.exact == jeng.ft.exact
     assert eng.count(text) == jeng.count(text) == truth
@@ -58,35 +60,53 @@ def test_wide_case_routes_like_jax(frac):
     assert eng.fallback_scans == 0
 
 
+def _jax_pallas(codes, sigma, stage_bits, **kw):
+    return jfast.FastScanner(jfast.build_fast(codes, sigma,
+                                              stage_bits=stage_bits),
+                             backend="pallas", interpret=True, **kw)
+
+
 def test_dense_corpus_falls_back_exact():
-    """A row with more than 16 cascade survivors flags overflow on the raw
-    API; count() retries with fast_count_core and is exact."""
+    """A run of matches overflows the cascade's rows on the async path; the
+    sync path (mask pipeline, row-dense trial) counts it without overflow;
+    the retry is exact and switches the scanner to the dense pass — each
+    step as in the JAX package on the same input."""
     text, pats = dense_case()
+    truth = datagen.count_matches(text, pats)
+    # a 4096 cap holds the run's 2028 matches and keeps the sync trials'
+    # compactions small; the route (cascade) is the default cap's
+    jeng = _jax_pallas(pats.codes, 4, 32768, cap=1 << 12)
     eng = tfast.FastScanner(tfast.build_fast(pats.codes, 4,
-                                             stage_bits=32768))
-    _, o = eng.count_with_overflow(text)
-    assert o
-    assert eng.count(text) == datagen.count_matches(text, pats)
-    assert eng.fallback_scans == 1
-    assert eng._k_extra == 0          # match-driven: no extra stage
+                                             stage_bits=32768), cap=1 << 12)
+    assert eng.count_with_overflow(text) == jeng.count_with_overflow(text) \
+        == (truth, False)
+    assert eng.count(text) == jeng.count(text) == truth
+    assert eng.fallback_scans == jeng._retries == 1
+    assert (eng._k_extra, eng._match_dense) == \
+        (jeng._k_extra, jeng._match_dense) == (0, True)
+    assert eng.count(text) == truth and eng.fallback_scans == 1   # steady
 
 
 def test_retry_adds_a_stage_after_false_candidate_overflow():
     """_async_retry on a match-sparse text: exact count, and one more
-    phase-1 stage for later scans (the JAX _k_extra adaptation)."""
+    filter stage for later scans, routed as the JAX package routes it."""
     ab = Alphabet.of_size(4)
-    text = datagen.generate_text(1 << 18, ab, seed=9)
+    text = datagen.generate_text(1 << 17, ab, seed=9)
     pats = datagen.generate_patterns(text, 3000, 32, ab, frac_present=0.0,
                                      seed=10)
+    jeng = _jax_pallas(pats.codes, 4, 8192)
     eng = tfast.FastScanner(tfast.build_fast(pats.codes, 4,
                                              stage_bits=8192))
     n = len(text)
     k = tfast.stages_for(eng.ft, n, eng.cap)
-    _, k1, _ = eng._pick_path(n, k)
+    before = eng._pick_path(n, k)
+    truth = datagen.count_matches(text, pats)
     assert eng._async_retry(torch.from_numpy(text)) == \
-        datagen.count_matches(text, pats)
-    assert eng.fallback_scans == 1 and eng._k_extra == 1
-    assert eng._pick_path(n, k)[1] == k1 + 1
+        jeng._async_retry(text) == truth
+    assert eng.fallback_scans == 1 and eng._k_extra == jeng._k_extra == 1
+    assert not eng._match_dense
+    assert eng._pick_path(n, k) == jeng._pick_path(n, k) != before
+    assert eng.count(text) == truth
 
 
 def test_fast_count_core_and_overflow_flag():
@@ -128,23 +148,56 @@ def test_count_async_and_device_checks():
 
 
 def test_port_imports_no_jax():
+    """A fresh interpreter that imports the port, makes data with its own
+    generator and counts on the CPU holds no jax and no tpu_smatcher*
+    module."""
     code = (
         "import sys\n"
-        "import numpy as np\n"
         "import tpu_smatcher_torch as t\n"
-        "from tpu_smatcher.core import datagen\n"
+        "from tpu_smatcher_torch.core import datagen\n"
         "ab = t.Alphabet.dna()\n"
         "text = datagen.generate_text(20000, ab, seed=1)\n"
         "pats = datagen.generate_patterns(text, 20, 16, ab, seed=2)\n"
         "c = t.make_fast(pats, device='cpu').count(text)\n"
         "assert c == datagen.count_matches(text, pats), c\n"
-        "assert 'jax' not in sys.modules\n"
+        "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
+        "       or k == 'tpu_smatcher' or k.startswith('tpu_smatcher.')]\n"
+        "assert not bad, bad\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_ab_cascade_needs_a_card():
+    """The in-process cascade A/B refuses to run without CUDA, before it
+    builds anything."""
+    from tpu_smatcher_torch import ab_cascade
+    assert ab_cascade.main([REPO]) == 1
+
+
+@pytest.mark.parametrize("sigma,m,p,seed", [(4, 16, 50, 1), (20, 8, 300, 7),
+                                            (256, 32, 10, 40)])
+def test_datagen_matches_jax(sigma, m, p, seed):
+    """The port's data generator makes the JAX package's bytes."""
+    ab = Alphabet.of_size(sigma)
+    text = datagen.generate_text(5000, ab, seed=seed)
+    jab = jax_pats(PatternSet(np.zeros((1, 1), np.uint8), ab)).alphabet
+    jtext = jdatagen.generate_text(5000, jab, seed=seed)
+    assert np.array_equal(text, jtext)
+    for frac in (0.0, 0.5, 1.0):
+        pats = datagen.generate_patterns(text, p, m, ab, frac_present=frac,
+                                         seed=seed + 1)
+        jp = jdatagen.generate_patterns(jtext, p, m, jab, frac_present=frac,
+                                        seed=seed + 1)
+        assert np.array_equal(pats.codes, jp.codes)
+        assert datagen.count_matches(text, pats) == \
+            jdatagen.count_matches(jtext, jp)
+    planted = datagen.plant(text, pats.codes[0], [0, 100, 4000])
+    assert np.array_equal(planted, jdatagen.plant(jtext, jp.codes[0],
+                                                  [0, 100, 4000]))
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):

@@ -1,4 +1,4 @@
-"""PyTorch port: the two kernels' plain versions and the compaction and
+"""PyTorch port: the kernels' plain versions and the compaction and
 verification around them equal the JAX package (Pallas kernels in
 interpret mode) on the same inputs.  All integer: tolerance 0.  The CUDA
 kernels themselves are held against these plain versions on the card in
@@ -10,10 +10,10 @@ import torch
 
 import jax.numpy as jnp
 
-from tpu_smatcher.core import datagen
 from tpu_smatcher.ops import fast as jfast
 from tpu_smatcher.ops import pallas_filter as pf
 
+from tpu_smatcher_torch.core import datagen
 from tpu_smatcher_torch.ops import cuda_filter as cf
 from tpu_smatcher_torch.ops import fast as tfast
 
@@ -123,14 +123,14 @@ def test_word_view_matches_pallas(jax_cascade):
     text, pats, jft, _, _ = _cascade_inputs("sparse")
     n = len(text) - 5                       # not a multiple of 4
     nw = jfast.words_len(n, jft.words)
-    got = tfast.words_view(torch.from_numpy(text[:n].copy()), nw)
+    got = cf.words_view(torch.from_numpy(text[:n].copy()), nw)
     want = np.asarray(pf.words_view_pallas(jnp.asarray(text[:n]), nw=nw,
                                            interpret=True))
     assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want)
     # the kernel's fused view; a block-aligned text (as here) has no
     # margin words in JAX, which the port always pads (with zeros)
-    full = tfast.words_view(torch.from_numpy(text),
-                            jfast.words_len(len(text), jft.words)).numpy()
+    full = cf.words_view(torch.from_numpy(text),
+                         jfast.words_len(len(text), jft.words)).numpy()
     fused = jax_cascade["sparse"][1]
     k = min(len(fused), len(full))
     assert np.array_equal(full[:k], fused[:k]) and not full[k:].any()
@@ -149,8 +149,7 @@ def test_verify_matched_matches_jax(slot_ok):
         true_starts, rng.integers(0, n_starts, 3000), [-1, -1, 0],
         [n_starts - 1, n_starts, n - 1]]).astype(np.int32)
     rng.shuffle(idxs)
-    tw = tfast.words_view(torch.from_numpy(text),
-                          tfast.words_len(n, tft.words))
+    tw = cf.words_view(torch.from_numpy(text), tfast.words_len(n, tft.words))
     kw = dict(m=m, words=jft.words, lmax=jft.lmax, eb=jft.eb,
               n_starts=n_starts, slot_ok=slot_ok)
     want = np.asarray(jfast._verify_matched(
@@ -189,3 +188,103 @@ def test_nonzero_scatter_matches_jax():
         want = np.asarray(jfast.nonzero_scatter(jnp.asarray(mask), size, -7))
         got = tfast.nonzero_scatter(torch.from_numpy(mask), size, -7)
         assert np.array_equal(got.numpy(), want)
+
+
+#: (sigma, m) of the k-stage filter cases: DNA, a protein-sized alphabet at
+#: m=8 (fingerprint tier), and a pattern longer than one 128-start row
+FILTER_CASES = [(4, 16), (4, 32), (20, 8), (4, 129)]
+
+
+def _filter_ns(m):
+    return [m, 1000, 1001, 70_003]
+
+
+def _filter_runs(m, stage_bits):
+    """(n, k, slots) of the filter parity runs at one stage width.  Each
+    Pallas call costs seconds of tracing in interpret mode (the slot
+    kernel's most), so the two widths share the text lengths: together
+    they run every n of _filter_ns and both k for each (sigma, m) through
+    the mask, and every run but the 1000-byte one (which the ragged 1001
+    covers) through the slots.  At 4096 bits k=1 over 70,003 starts
+    overflows every sub-block, the ragged last one included."""
+    if stage_bits == 4096:
+        return [(m, 3, True), (70_003, 1, True)]
+    return [(1000, 1, False), (1001, 3, True)]
+
+
+def _filter_inputs(sigma, m, stage_bits):
+    text, pats = make_case(sigma, m, 300, 70_003, seed=sigma + m)
+    return (text, pats,
+            jfast.build_fast(pats.codes, sigma, stage_bits=stage_bits),
+            tfast.build_fast(pats.codes, sigma, stage_bits=stage_bits))
+
+
+@pytest.mark.parametrize("stage_bits", [4096, 32768])
+@pytest.mark.parametrize("sigma,m", FILTER_CASES)
+def test_filter_plain_matches_pallas(sigma, m, stage_bits):
+    """filter_mask_plain == filter_mask_pallas on the valid starts (the
+    padding is zero in both), and filter_slots_plain == the slot rows of
+    filter_slots_pallas per sub-block: the first 16 positions and the
+    true count, including sub-blocks with more than 16 candidates."""
+    text, pats, jft, tft = _filter_inputs(sigma, m, stage_bits)
+    overflowed = False
+    for n, k, slots in _filter_runs(m, stage_bits):
+        t = torch.from_numpy(text[:n].copy())
+        jt = jnp.asarray(text[:n])
+        jargs = dict(m=m, n=n, n_stages=k, cd=jft.cd(k), interpret=True)
+        args = dict(m=m, cd=tft.cd(k))
+        n_starts = n - m + 1
+        want = np.asarray(pf.filter_mask_pallas(
+            jt, jft.bitmaps[:k], **jargs)).reshape(-1)
+        got = cf.filter_mask_plain(t, tft.bitmaps[:k], **args)
+        assert got.dtype == torch.int8
+        assert got.shape == (-(-n_starts // 128), 128), n
+        got = got.numpy().reshape(-1)
+        assert np.array_equal(got[:n_starts], want[:n_starts]), (n, k)
+        assert not got[n_starts:].any() and not want[n_starts:].any()
+        before = dict(cf.LAUNCHES)   # a CPU tensor runs the plain versions
+        assert np.array_equal(
+            cf.filter_mask(t, tft.bitmaps[:k], **args).numpy().reshape(-1),
+            got)
+        assert cf.LAUNCHES == before
+        if not slots:
+            continue
+
+        slotmat, _ = pf.filter_slots_pallas(jt, jft.bitmaps[:k], **jargs)
+        slotmat = np.asarray(slotmat)
+        n_sub = -(-n_starts // cf.SUB_BLOCK)
+        pos, counts = cf.filter_slots_plain(t, tft.bitmaps[:k], **args)
+        assert pos.dtype == counts.dtype == torch.int32
+        assert pos.shape == (n_sub, cf.BLOCK_SLOTS) and counts.shape == (n_sub,)
+        assert np.array_equal(pos.numpy(), slotmat[:n_sub, :cf.BLOCK_SLOTS])
+        assert np.array_equal(counts.numpy(), slotmat[:n_sub, cf.BLOCK_SLOTS])
+        assert not slotmat[n_sub:, cf.BLOCK_SLOTS].any()
+        assert int(counts.sum()) == int(got.sum())
+        overflowed |= bool((counts > cf.BLOCK_SLOTS).any())
+        p2, c2 = cf.filter_slots(t, tft.bitmaps[:k], **args)
+        assert torch.equal(p2, pos) and torch.equal(c2, counts)
+        assert cf.LAUNCHES == before
+    if stage_bits == 4096:          # k=1 at 70,003 starts fills sub-blocks
+        assert overflowed
+
+
+@pytest.mark.parametrize("sigma,m", FILTER_CASES)
+def test_words_view_plain_matches_pallas(sigma, m):
+    """words_view_plain == words_view_pallas on the text's ceil(n/4) words,
+    and the verify margin after them is zero in both."""
+    text, pats = make_case(sigma, m, 300, 70_003, seed=sigma + m)
+    words = -(-m // 4)
+    for n in _filter_ns(m):
+        nw = jfast.words_len(n, words)
+        want = np.asarray(pf.words_view_pallas(jnp.asarray(text[:n]), nw=nw,
+                                               interpret=True))
+        got = cf.words_view_plain(torch.from_numpy(text[:n].copy()), nw)
+        assert got.dtype == torch.int32 and got.shape == (nw,)
+        q = -(-n // 4)
+        got = got.numpy()
+        assert np.array_equal(got[:q], want[:q]), n
+        assert not got[q:].any() and not want[q:].any()
+        before = dict(cf.LAUNCHES)
+        assert np.array_equal(
+            cf.words_view(torch.from_numpy(text[:n].copy()), nw).numpy(), got)
+        assert cf.LAUNCHES == before

@@ -1,14 +1,24 @@
 """Shared inputs of the tests/test_torch_*.py parity tests: the same cases
 go through the JAX package and its PyTorch port, made with numpy from a
-seed."""
+seed.  Cases are built with the port's own data generator (which makes the
+same bytes as the JAX package's) and hold the port's PatternSet; jax_pats
+gives the JAX package's PatternSet of the same codes.  This module imports
+nothing of the JAX package at import time, so the card-only tests can use
+it where JAX is not installed."""
 
 import dataclasses
 
 import numpy as np
+import torch
 
-from tpu_smatcher.core import datagen
-from tpu_smatcher.core.alphabet import Alphabet
-from tpu_smatcher.core.patterns import PatternSet
+from tpu_smatcher_torch.core import datagen
+from tpu_smatcher_torch.core.alphabet import Alphabet
+from tpu_smatcher_torch.core.patterns import PatternSet
+
+# The parity tests run many small torch CPU ops while the other test
+# processes compile JAX programs: one intra-op thread per process keeps them
+# from oversubscribing the cores.
+torch.set_num_threads(1)
 
 #: tests/test_fast.py's CASES: (sigma, m, p_size, n)
 CASES = [
@@ -51,6 +61,20 @@ def dense_case():
     codes = pats.codes.copy()
     codes[0] = 0
     return text, PatternSet(codes, pats.alphabet)
+
+
+def jax_pats(pats):
+    """The JAX package's PatternSet of the same numpy codes and alphabet."""
+    from tpu_smatcher.core.alphabet import Alphabet as JAlphabet
+    from tpu_smatcher.core.patterns import PatternSet as JPatternSet
+    ab = pats.alphabet
+    return JPatternSet(pats.codes, JAlphabet(ab.size, ab.chars, ab.name))
+
+
+def port_pats(codes, sigma) -> PatternSet:
+    """The port's PatternSet of numpy codes over the alphabet of size
+    sigma."""
+    return PatternSet(np.asarray(codes, np.uint8), Alphabet.of_size(sigma))
 
 
 def jax_fields(jft) -> dict:

@@ -1,10 +1,12 @@
 """Build the CUDA kernels in csrc/ with nvcc and bind them with ctypes.
 
-The kernels have a plain C interface (no PyTorch headers), so one nvcc
-call builds them all in seconds.  The library is built at first use into
-build/ beside this file, named by a hash of the sources and flags, so a
-stale build is never loaded.  There is no fallback: without nvcc the build
-raises, and a CUDA tensor never reaches a plain torch version.
+The kernels have a plain C interface (no PyTorch headers), so nvcc builds
+each source in seconds; all sources are compiled at once, one nvcc process
+each, into one shared library per source.  The libraries are built at
+first use into build/ beside this file, each named by a hash of its
+source, the shared headers and the flags, so a stale build is never
+loaded.  There is no fallback: without nvcc the build raises, and a CUDA
+tensor never reaches a plain torch version.
 
     python -c "from tpu_smatcher_torch import _build; _build.load()"
 """
@@ -12,23 +14,47 @@ raises, and a CUDA tensor never reaches a plain torch version.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
+import types
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-SOURCES = ("exact_count.cu", "cascade.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
+_vp, _i32, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+#: source -> {C function: argument types}; every function returns a
+#: cudaError_t as int (0 = launched)
+SOURCES = {
+    # (text, n, m, bits, bitmap, nwords, out, device, stream)
+    "exact_count.cu": {"tsm_exact_count": [_vp, _i64, _i32, _i32, _vp, _i32,
+                                           _vp, _i32, _vp]},
+    # (text, n, m, bitmaps, kt, stage_bits, k1, cd, slots, rows, ovf,
+    #  device, stream)
+    "cascade.cu": {"tsm_cascade": [_vp, _i64, _i32, _vp, _i32, _i32, _i32,
+                                   _vp, _vp, _i64, _vp, _i32, _vp]},
+    "filter.cu": {
+        # (text, n, m, bitmaps, k, stage_bits, cd, mask, rows, device,
+        #  stream)
+        "tsm_filter_mask": [_vp, _i64, _i32, _vp, _i32, _i32, _vp, _vp,
+                            _i64, _i32, _vp],
+        # (text, n, m, bitmaps, k, stage_bits, cd, pos, counts, n_sub,
+        #  device, stream)
+        "tsm_filter_slots": [_vp, _i64, _i32, _vp, _i32, _i32, _vp, _vp,
+                             _vp, _i64, _i32, _vp]},
+    # (text, n, out, nw, device, stream)
+    "words.cu": {"tsm_words_view": [_vp, _i64, _vp, _i64, _i32, _vp]},
+}
+
 _lock = threading.Lock()
 _lib = None
-
-_vp, _i32, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
 def find_nvcc() -> str:
@@ -46,49 +72,62 @@ def find_nvcc() -> str:
         "CUDA kernels of tpu_smatcher_torch cannot be built")
 
 
-def _lib_path() -> str:
+def _lib_path(source: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        with open(os.path.join(CSRC, name), "rb") as f:
+    for path in [os.path.join(CSRC, source),
+                 *sorted(glob.glob(os.path.join(CSRC, "*.cuh")))]:
+        with open(path, "rb") as f:
             h.update(f.read())
-    return os.path.join(BUILD_DIR, f"libtsm_kernels_{h.hexdigest()[:16]}.so")
+    stem = os.path.splitext(source)[0]
+    return os.path.join(BUILD_DIR, f"libtsm_{stem}_{h.hexdigest()[:16]}.so")
 
 
-def build(verbose: bool = False) -> str:
-    """Compile csrc/*.cu into the shared library (if not already built);
-    returns its path.  verbose adds -Xptxas -v and prints nvcc's output."""
-    path = _lib_path()
-    if os.path.exists(path) and not verbose:
-        return path
+def build(verbose: bool = False) -> dict:
+    """Compile every csrc/*.cu not yet built, all nvcc processes at once;
+    returns {source: library path}.  verbose adds -Xptxas -v and prints
+    nvcc's output."""
+    paths = {s: _lib_path(s) for s in SOURCES}
+    todo = [s for s, p in paths.items() if verbose or not os.path.exists(p)]
+    if not todo:
+        return paths
     nvcc = find_nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *(os.path.join(CSRC, s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    if verbose:
-        print(proc.stdout + proc.stderr, flush=True)
-    os.replace(tmp, path)
-    return path
+    procs = []
+    for s in todo:
+        tmp = f"{paths[s]}.{os.getpid()}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+               "-o", tmp, os.path.join(CSRC, s)]
+        procs.append((s, tmp, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    failed = []
+    for s, tmp, cmd, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{out}")
+            continue
+        if verbose:
+            print(f"{s}:\n{out}", flush=True)
+        os.replace(tmp, paths[s])
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return paths
 
 
 def load():
-    """The bound kernel library, built at first use."""
+    """The bound kernel functions (one attribute per C function), built at
+    first use."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(build())
-            # (text, n, m, bits, bitmap, nwords, out, device, stream)
-            lib.tsm_exact_count.argtypes = [_vp, _i64, _i32, _i32, _vp, _i32,
-                                            _vp, _i32, _vp]
-            lib.tsm_exact_count.restype = _i32
-            # (text, n, m, bitmaps, kt, stage_bits, k1, cd, slots, rows,
-            #  ovf, device, stream)
-            lib.tsm_cascade.argtypes = [_vp, _i64, _i32, _vp, _i32, _i32,
-                                        _i32, _vp, _vp, _i64, _vp, _i32, _vp]
-            lib.tsm_cascade.restype = _i32
-            _lib = lib
+            fns = {}
+            for source, path in build().items():
+                lib = ctypes.CDLL(path)
+                for name, argtypes in SOURCES[source].items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = argtypes
+                    fn.restype = _i32
+                    fns[name] = fn
+            _lib = types.SimpleNamespace(**fns)
         return _lib

@@ -13,7 +13,8 @@
 // stages [k1, kt).  Output: slots (rows, 16) int32, slot k of row r = the
 // row's k-th survivor if it passed phase 2, else -1; and ovf = 1 if any row
 // had more than 16 phase-1 survivors.  (R, 16) row-major is the same memory
-// as the Pallas kernel's packed (R/8, 128) output.
+// as the Pallas kernel's packed (R/8, 128) output.  The key and stage code is
+// shared with filter.cu (fp_filter.cuh).
 //
 // What bounds it on an H100: integer ALU and the bitmap reads, not memory
 // traffic — the text is read once, while each start costs 3*m multiply-adds
@@ -38,24 +39,16 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "fp_filter.cuh"
+
 namespace {
+
+using tsm::BaseFps;
+using tsm::StageCD;
 
 constexpr int kRow = 128;        // starts per row, = threads per block
 constexpr int kRows = 8;         // rows per block
 constexpr int kSlots = 16;       // survivors kept per row
-constexpr int kMaxStages = 32;   // len(STAGE_CD)
-constexpr int kMaxM = 4097;      // MAX_FAST_M of the JAX fast path
-constexpr uint32_t kMult0 = 0x9E37, kMult1 = 0x6A09, kMult2 = 0xB2D1;
-
-struct StageCD {
-  uint32_t c[kMaxStages];
-  uint32_t d[kMaxStages];
-};
-
-__device__ __forceinline__ bool stage_hit(const uint32_t* __restrict__ bm,
-                                          uint32_t key) {
-  return (__ldg(bm + (key >> 5)) >> (key & 31)) & 1u;
-}
 
 __global__ void __launch_bounds__(kRow)
 cascade_kernel(const uint8_t* __restrict__ text, long long n, int m,
@@ -67,37 +60,20 @@ cascade_kernel(const uint8_t* __restrict__ text, long long n, int m,
   __shared__ int wcnt[kRows][kRow / 32];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const long long base = (long long)blockIdx.x * kRows * kRow;
-  const int tbytes = kRows * kRow + m - 1;
-  for (int i = tid; i < tbytes; i += kRow) {
-    long long g = base + i;
-    tile[i] = g < n ? text[g] : 0;
-  }
+  tsm::load_tile<kRow>(tile, text, n, base, kRows * kRow + m - 1);
   __syncthreads();
 
-  uint32_t f0[kRows], f1[kRows], f2[kRows], bal[kRows];
+  BaseFps f[kRows];
+  uint32_t bal[kRows];
   bool cand[kRows];
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     bool c = base + r * kRow + tid < n_starts;
-    uint32_t a = 0, b = 0, e = 0;
+    f[r] = {0u, 0u, 0u};
     if (c) {
-      const uint8_t* w = tile + r * kRow + tid;
-      for (int j = m - 1; j >= 0; --j) {
-        uint32_t t = w[j];
-        a = a * kMult0 + t;
-        b = b * kMult1 + t;
-        e = e * kMult2 + t;
-      }
-      a &= 0xFFFFu;
-      b &= 0xFFFFu;
-      e &= 0xFFFFu;
-      for (int s = 0; s < k1 && c; ++s)
-        c = stage_hit(bitmaps + (size_t)s * words,
-                      (a + cd.c[s] * b + cd.d[s] * e) & smask);
+      f[r] = tsm::base_fps(tile + r * kRow + tid, m);
+      c = tsm::stages_hit(f[r], bitmaps, cd, 0, k1, words, smask);
     }
-    f0[r] = a;
-    f1[r] = b;
-    f2[r] = e;
     cand[r] = c;
     bal[r] = __ballot_sync(0xffffffffu, c);
     if (lane == 0) wcnt[r][warp] = __popc(bal[r]);
@@ -121,10 +97,7 @@ cascade_kernel(const uint8_t* __restrict__ text, long long n, int m,
     if (cand[r]) {
       int rank = before + __popc(bal[r] & ((1u << lane) - 1u));
       if (rank < kSlots) {
-        bool c2 = true;
-        for (int s = k1; s < kt && c2; ++s)
-          c2 = stage_hit(bitmaps + (size_t)s * words,
-                         (f0[r] + cd.c[s] * f1[r] + cd.d[s] * f2[r]) & smask);
+        bool c2 = tsm::stages_hit(f[r], bitmaps, cd, k1, kt, words, smask);
         out[rank] = c2 ? (int)(base + r * kRow + tid) : -1;
       }
     }
@@ -143,20 +116,15 @@ extern "C" int tsm_cascade(const void* text, long long n, int m,
                            const void* bitmaps, int kt, int stage_bits, int k1,
                            const void* cd, void* slots, long long rows,
                            void* ovf, int device, void* stream) {
-  if (m < 1 || m > kMaxM || kt < 2 || kt > kMaxStages || k1 < 1 ||
-      k1 >= kt || stage_bits < 32 || (stage_bits & (stage_bits - 1)))
+  if (m < 1 || m > tsm::kMaxM || kt < 2 || kt > tsm::kMaxStages || k1 < 1 ||
+      k1 >= kt || !tsm::valid_stage_bits(stage_bits))
     return (int)cudaErrorInvalidValue;
   long long n_starts = n - m + 1;
   if (n_starts <= 0 || rows != (n_starts + kRow - 1) / kRow)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  StageCD scd = {};
-  const uint32_t* h = (const uint32_t*)cd;
-  for (int s = 0; s < kt; ++s) {
-    scd.c[s] = h[2 * s];
-    scd.d[s] = h[2 * s + 1];
-  }
+  StageCD scd = tsm::load_cd(cd, kt);
   long long grid = (rows + kRows - 1) / kRows;
   size_t smem = (size_t)(kRows * kRow + m - 1);
   cascade_kernel<<<(unsigned)grid, kRow, smem, (cudaStream_t)stream>>>(

@@ -1,0 +1,99 @@
+// Shared device code of the fingerprint-tier kernels (cascade.cu, filter.cu).
+//
+// Ports the key and stage code of the TPU filters: _bases_flat / _fp_keys_views
+// (tpu_smatcher/ops/pallas_filter.py:519/:499), derived_keys (:316) and the
+// stage ANDs of _candidates_flat (:530).
+//
+// For a window t[i..i+m) the three base fingerprints are
+//     fp_s = sum_j t[i+j] * FP_MULTS[s]^j  mod 2^16      (s = 0, 1, 2)
+// computed by Horner's rule in uint32 and masked at the end: uint32
+// wraparound is exact mod 2^32, so the low 16 bits are exact for any m (the
+// TPU's bf16 MXU keys and their f32-accumulation limit do not exist here).
+// Stage s tests bit key_s = (fp0 + C_s*fp1 + D_s*fp2) mod stage_bits of its
+// bitmap; C, D <= 0xFFFF keep the uint32 sum exact mod stage_bits <= 2^18.
+// Bitmaps are read through the read-only cache (__ldg): up to 32 stages of up
+// to 262,144 bits do not fit shared memory.
+
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace tsm {
+
+constexpr int kMaxStages = 32;   // len(STAGE_CD)
+constexpr int kMaxM = 4097;      // MAX_FAST_M of the JAX fast path
+constexpr uint32_t kMult0 = 0x9E37, kMult1 = 0x6A09, kMult2 = 0xB2D1;
+
+// (C, D) of each stage, passed by value as a kernel parameter.
+struct StageCD {
+  uint32_t c[kMaxStages];
+  uint32_t d[kMaxStages];
+};
+
+// Host: StageCD from a host array of 2*k uint32, (C_0, D_0, C_1, D_1, ...).
+inline StageCD load_cd(const void* cd, int k) {
+  StageCD scd = {};
+  const uint32_t* h = (const uint32_t*)cd;
+  for (int s = 0; s < k; ++s) {
+    scd.c[s] = h[2 * s];
+    scd.d[s] = h[2 * s + 1];
+  }
+  return scd;
+}
+
+inline bool valid_stage_bits(int stage_bits) {
+  return stage_bits >= 32 && !(stage_bits & (stage_bits - 1));
+}
+
+struct BaseFps {
+  uint32_t f0, f1, f2;
+};
+
+// Block-wide, over a block of kThreads threads: tile[i] = text[base + i] for
+// i < len, zero past the text's end.  (A compile-time stride: with blockDim.x
+// the cascade ran 4% slower on an H100, tpu_smatcher_torch/ab_cascade.py.)
+template <int kThreads>
+__device__ __forceinline__ void load_tile(uint8_t* tile,
+                                          const uint8_t* __restrict__ text,
+                                          long long n, long long base,
+                                          int len) {
+  for (int i = threadIdx.x; i < len; i += kThreads) {
+    long long g = base + i;
+    tile[i] = g < n ? text[g] : 0;
+  }
+}
+
+// The three base fingerprints of the m bytes at w.
+__device__ __forceinline__ BaseFps base_fps(const uint8_t* w, int m) {
+  uint32_t a = 0, b = 0, e = 0;
+  for (int j = m - 1; j >= 0; --j) {
+    uint32_t t = w[j];
+    a = a * kMult0 + t;
+    b = b * kMult1 + t;
+    e = e * kMult2 + t;
+  }
+  return {a & 0xFFFFu, b & 0xFFFFu, e & 0xFFFFu};
+}
+
+__device__ __forceinline__ bool stage_hit(const uint32_t* __restrict__ bm,
+                                          uint32_t key) {
+  return (__ldg(bm + (key >> 5)) >> (key & 31)) & 1u;
+}
+
+// AND of stages [s0, s1), stopping at the first miss.  bitmaps: stage s at
+// bitmaps + s * words (words = stage_bits / 32); smask = stage_bits - 1.
+// (`&& ok` in the loop condition: an early return instead ran the cascade 6%
+// slower on an H100, tpu_smatcher_torch/ab_cascade.py.)
+__device__ __forceinline__ bool stages_hit(const BaseFps& f,
+                                           const uint32_t* __restrict__ bitmaps,
+                                           const StageCD& cd, int s0, int s1,
+                                           int words, uint32_t smask) {
+  bool ok = true;
+  for (int s = s0; s < s1 && ok; ++s)
+    ok = stage_hit(bitmaps + (size_t)s * words,
+                   (f.f0 + cd.c[s] * f.f1 + cd.d[s] * f.f2) & smask);
+  return ok;
+}
+
+}  // namespace tsm

@@ -5,7 +5,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpu_smatcher.core.patterns import PatternSet
+from tpu_smatcher_torch.core.patterns import PatternSet
 
 
 def _codes(patterns) -> tuple[np.ndarray, int]:

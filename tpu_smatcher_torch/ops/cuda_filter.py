@@ -1,17 +1,19 @@
-"""The fast path's two kernels: wrappers around the CUDA sources in csrc/,
-each beside its plain PyTorch version.
+"""The fast path's kernels: wrappers around the CUDA sources in csrc/,
+each beside its plain PyTorch version.  They replace the TPU kernels of
+tpu_smatcher/ops/pallas_filter.py:
 
-  exact_count   csrc/exact_count.cu  replaces _exact_flat_kernel
-                (tpu_smatcher/ops/pallas_filter.py:886)
-  cascade       csrc/cascade.cu      replaces _cascade_kernel (:758)
+  exact_count   csrc/exact_count.cu  _exact_flat_kernel (:886)
+  cascade       csrc/cascade.cu      _cascade_kernel (:758)
+  filter_mask   csrc/filter.cu       _filter_mask_flat_kernel (:1052)
+  filter_slots  csrc/filter.cu       _filter_slots_flat_kernel (:559)
+  words_view    csrc/words.cu        _words_kernel (:1011), and the word
+                                     views the slot and cascade kernels
+                                     fuse on the TPU
 
 A wrapper given a CUDA tensor launches its kernel (or raises); given a CPU
 tensor it runs the plain version, which has the same signature and the same
 outputs bit for bit.  LAUNCHES counts kernel launches per wrapper, so a run
 can show that its main path went through the kernels.
-
-The cascade's second Pallas output, the verify word view, needs no kernel
-here: it is the zero-padded text reinterpreted as int32 (fast.words_view).
 """
 
 from __future__ import annotations
@@ -24,17 +26,23 @@ from tpu_smatcher_torch.ops.common import bits_per_char, cdiv
 from tpu_smatcher_torch.ops.keys import FP_MULTS, fp_keys, wid_keys
 from tpu_smatcher_torch.ops.lookup import bitmap_test
 
-#: starts per row of the cascade's compaction, and survivors kept per row
+#: starts per row of the cascade's compaction and of the filter mask, and
+#: survivors the cascade keeps per row
 ROW = 128
 ROW_SLOTS = 16
+#: starts per slot-route sub-block (pallas_filter.SLOT_RB * 128), and the
+#: candidates kept per sub-block (pallas_filter.BLOCK_SLOTS)
+SUB_BLOCK = 128 * 128
+BLOCK_SLOTS = 16
 #: longest pattern the kernels take (MAX_FAST_M of the JAX fast path)
 MAX_KERNEL_M = 4097
 #: starts per piece of the plain versions (bounds their temporaries; a
-#: multiple of ROW so pieces keep the cascade's row boundaries)
+#: multiple of ROW and SUB_BLOCK so pieces keep row and sub-block boundaries)
 PLAIN_PIECE = 1 << 24
 
 #: kernel launches per wrapper (plain-version calls are not counted)
-LAUNCHES = {"exact_count": 0, "cascade": 0}
+LAUNCHES = {"exact_count": 0, "cascade": 0, "filter_mask": 0,
+            "filter_slots": 0, "words_view": 0}
 
 
 def _check(text: torch.Tensor, tables: torch.Tensor, tables_ndim: int):
@@ -56,6 +64,13 @@ def _launch_args(t: torch.Tensor):
     from tpu_smatcher_torch import _build
     stream = torch.cuda.current_stream(t.device).cuda_stream
     return _build.load(), t.device.index or 0, ctypes.c_void_p(stream)
+
+
+def _cd_host(cd, k):
+    """The first k (C, D) stage pairs as a host array of 2k uint32, (C_0,
+    D_0, C_1, D_1, ...), as the kernels' load_cd reads them."""
+    return ctypes.cast((ctypes.c_uint32 * (2 * k))(
+        *(int(v) for c, d in cd[:k] for v in (c, d))), ctypes.c_void_p)
 
 
 def _raise_on(rc: int, name: str):
@@ -139,12 +154,10 @@ def cascade(text: torch.Tensor, bitmaps: torch.Tensor, *, m: int, k1: int,
     slots = torch.empty((rows, ROW_SLOTS), dtype=torch.int32,
                         device=text.device)
     ovf = torch.zeros((), dtype=torch.int32, device=text.device)
-    cd_host = (ctypes.c_uint32 * (2 * kt))(
-        *(int(v) for c, d in cd[:kt] for v in (c, d)))
     lib, dev, stream = _launch_args(text)
     rc = lib.tsm_cascade(text.data_ptr(), n, m, bitmaps.data_ptr(), kt,
-                         stage_bits, k1, ctypes.cast(cd_host, ctypes.c_void_p),
-                         slots.data_ptr(), rows, ovf.data_ptr(), dev, stream)
+                         stage_bits, k1, _cd_host(cd, kt), slots.data_ptr(),
+                         rows, ovf.data_ptr(), dev, stream)
     _raise_on(rc, "cascade")
     LAUNCHES["cascade"] += 1
     return slots, ovf
@@ -194,3 +207,158 @@ def cascade_plain(text: torch.Tensor, bitmaps: torch.Tensor, *, m: int,
         out.scatter_(1, col, val)
         slots[s // ROW:s // ROW + width // ROW] = out[:, :ROW_SLOTS]
     return slots, ovf.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# kernel 3: k-stage filter, mask and slots modes
+# ---------------------------------------------------------------------------
+
+def _check_filter(text, bitmaps, m, cd):
+    """Shared argument checks of filter_mask and filter_slots; returns
+    (k, stage_bits)."""
+    _check(text, bitmaps, 2)
+    k = int(bitmaps.shape[0])
+    stage_bits = int(bitmaps.shape[1]) * 32
+    n = int(text.shape[0])
+    if not 1 <= k <= len(cd):
+        raise ValueError(f"need k >= 1 stages and k (C, D) pairs; got k={k} "
+                         f"len(cd)={len(cd)}")
+    if stage_bits & (stage_bits - 1):
+        raise ValueError(f"stage_bits must be a power of two: {stage_bits}")
+    if not 1 <= m <= min(n, MAX_KERNEL_M):
+        raise ValueError(f"need 1 <= m <= min(n, {MAX_KERNEL_M}); m={m} "
+                         f"n={n}")
+    return k, stage_bits
+
+
+def filter_mask(text: torch.Tensor, bitmaps: torch.Tensor, *, m: int,
+                cd: tuple) -> torch.Tensor:
+    """Per-start candidate mask of the k stages in bitmaps ((k,
+    stage_bits/32) int32, one stage per row; cd: k (C, D) pairs):
+    (ceil((n-m+1)/128), 128) int8, 1 where all k stages hit, 0 elsewhere
+    and at starts >= n-m+1.  Requires n >= m."""
+    k, stage_bits = _check_filter(text, bitmaps, m, cd)
+    if text.device.type == "cpu":
+        return filter_mask_plain(text, bitmaps, m=m, cd=cd)
+    n = int(text.shape[0])
+    rows = cdiv(n - m + 1, ROW)
+    mask = torch.empty((rows, ROW), dtype=torch.int8, device=text.device)
+    lib, dev, stream = _launch_args(text)
+    rc = lib.tsm_filter_mask(text.data_ptr(), n, m, bitmaps.data_ptr(), k,
+                             stage_bits, _cd_host(cd, k), mask.data_ptr(),
+                             rows, dev, stream)
+    _raise_on(rc, "filter_mask")
+    LAUNCHES["filter_mask"] += 1
+    return mask
+
+
+def _candidates(text, bitmaps, cd, s, e, width, m):
+    """(width,) bool: starts [s, s + width) that hit every stage, False at
+    starts >= e (plain versions)."""
+    n = int(text.shape[0])
+    smask = int(bitmaps.shape[1]) * 32 - 1
+    chunk = torch.zeros(width + m - 1, dtype=torch.uint8, device=text.device)
+    chunk[:min(width + m - 1, n - s)] = text[s:s + width + m - 1]
+    fps = [fp_keys(chunk, m, mult) for mult in FP_MULTS[:3]]
+    pos = torch.arange(s, s + width, device=text.device)
+    return _stage_hits(fps, bitmaps, cd, range(int(bitmaps.shape[0])),
+                       smask) & (pos < e)
+
+
+def filter_mask_plain(text: torch.Tensor, bitmaps: torch.Tensor, *, m: int,
+                      cd: tuple) -> torch.Tensor:
+    """Plain torch version of filter_mask (any device)."""
+    n_starts = int(text.shape[0]) - m + 1
+    rows = cdiv(n_starts, ROW)
+    mask = torch.empty(rows * ROW, dtype=torch.int8, device=text.device)
+    for s in range(0, rows * ROW, PLAIN_PIECE):
+        width = min(PLAIN_PIECE, rows * ROW - s)
+        mask[s:s + width] = _candidates(text, bitmaps, cd, s,
+                                        min(s + width, n_starts), width, m)
+    return mask.view(rows, ROW)
+
+
+def filter_slots(text: torch.Tensor, bitmaps: torch.Tensor, *, m: int,
+                 cd: tuple) -> tuple[torch.Tensor, torch.Tensor]:
+    """The slot route's filter: for every SUB_BLOCK-start sub-block, its
+    first BLOCK_SLOTS candidates by position and its true candidate count.
+    Returns (pos (n_sub, 16) int32, -1 where empty; counts (n_sub,) int32),
+    n_sub = ceil((n-m+1)/16384).  Requires n >= m."""
+    k, stage_bits = _check_filter(text, bitmaps, m, cd)
+    if text.device.type == "cpu":
+        return filter_slots_plain(text, bitmaps, m=m, cd=cd)
+    n = int(text.shape[0])
+    n_sub = cdiv(n - m + 1, SUB_BLOCK)
+    pos = torch.empty((n_sub, BLOCK_SLOTS), dtype=torch.int32,
+                      device=text.device)
+    counts = torch.empty((n_sub,), dtype=torch.int32, device=text.device)
+    lib, dev, stream = _launch_args(text)
+    rc = lib.tsm_filter_slots(text.data_ptr(), n, m, bitmaps.data_ptr(), k,
+                              stage_bits, _cd_host(cd, k), pos.data_ptr(),
+                              counts.data_ptr(), n_sub, dev, stream)
+    _raise_on(rc, "filter_slots")
+    LAUNCHES["filter_slots"] += 1
+    return pos, counts
+
+
+def filter_slots_plain(text: torch.Tensor, bitmaps: torch.Tensor, *, m: int,
+                       cd: tuple) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch version of filter_slots (any device): ranks each
+    sub-block's candidates with a cumsum and scatters the first
+    BLOCK_SLOTS into place."""
+    n_starts = int(text.shape[0]) - m + 1
+    n_sub = cdiv(n_starts, SUB_BLOCK)
+    dev = text.device
+    pos = torch.empty((n_sub, BLOCK_SLOTS), dtype=torch.int32, device=dev)
+    counts = torch.empty((n_sub,), dtype=torch.int32, device=dev)
+    for s in range(0, n_sub * SUB_BLOCK, PLAIN_PIECE):
+        width = min(PLAIN_PIECE, n_sub * SUB_BLOCK - s)
+        cand = _candidates(text, bitmaps, cd, s, n_starts, width,
+                           m).view(-1, SUB_BLOCK)
+        rank = torch.cumsum(cand, dim=1) - 1
+        keep = cand & (rank < BLOCK_SLOTS)
+        col = torch.where(keep, rank, BLOCK_SLOTS)   # column 16 = trash
+        val = torch.where(keep, torch.arange(s, s + width, device=dev).view(
+            -1, SUB_BLOCK), -1)
+        out = torch.full((cand.shape[0], BLOCK_SLOTS + 1), -1,
+                         dtype=torch.int64, device=dev)
+        out.scatter_(1, col, val)
+        b = s // SUB_BLOCK
+        pos[b:b + cand.shape[0]] = out[:, :BLOCK_SLOTS]
+        counts[b:b + cand.shape[0]] = cand.sum(1)
+    return pos, counts
+
+
+# ---------------------------------------------------------------------------
+# kernel 4: the verify word view
+# ---------------------------------------------------------------------------
+
+def words_view(text: torch.Tensor, nw: int) -> torch.Tensor:
+    """(nw,) int32 little-endian words of the zero-padded text (the first
+    nw*4 bytes).  Verify reads words+1 consecutive words per start and
+    torch gathers do not clamp, so callers pass nw = fast.words_len(n,
+    words), which covers that margin."""
+    if text.dtype != torch.uint8 or text.dim() != 1:
+        raise TypeError(f"text must be 1-D uint8, got {text.dtype} "
+                        f"{tuple(text.shape)}")
+    if not text.is_contiguous():
+        raise ValueError("text must be contiguous")
+    if text.device.type == "cpu":
+        return words_view_plain(text, nw)
+    if text.device.type != "cuda":
+        raise ValueError(f"unsupported device {text.device}")
+    out = torch.empty((nw,), dtype=torch.int32, device=text.device)
+    lib, dev, stream = _launch_args(text)
+    rc = lib.tsm_words_view(text.data_ptr(), int(text.shape[0]),
+                            out.data_ptr(), nw, dev, stream)
+    _raise_on(rc, "words_view")
+    LAUNCHES["words_view"] += 1
+    return out
+
+
+def words_view_plain(text: torch.Tensor, nw: int) -> torch.Tensor:
+    """Plain torch version of words_view (any device)."""
+    n = int(text.shape[0])
+    buf = torch.zeros(nw * 4, dtype=torch.uint8, device=text.device)
+    buf[:min(n, nw * 4)] = text[:nw * 4]
+    return buf.view(torch.int32)

@@ -4,19 +4,30 @@ Port of tpu_smatcher/ops/fast.py.  Two tiers, as in the JAX package:
 
   - exact tier (sigma^m <= 2^16): the packed window id indexes a terminal
     bitmap; one kernel (cuda_filter.exact_count) counts the hits.
-  - fingerprint tier: the two-phase cascade kernel (cuda_filter.cascade)
-    emits up to 16 candidate positions per 128-start row; they are
-    compacted (nonzero_scatter) and verified exactly against the
-    fingerprint-bucketed patterns (_verify_matched) in torch ops.
+  - fingerprint tier: FastScanner._pick_path routes a scan by the JAX
+    package's cost model to one of three forms, each a filter kernel whose
+    candidates are compacted (torch ops, no host sync) and verified exactly
+    against the fingerprint-bucketed patterns (_verify_matched) over the
+    text's word view (cuda_filter.words_view):
+      slot     cuda_filter.filter_slots: 16 candidates + the true count
+               per 16,384-start sub-block -> compact_slots
+      cascade  cuda_filter.cascade: two-phase filter, 16 survivors per
+               128-start row -> compact_valrows
+      mask     cuda_filter.filter_mask: the per-start mask -> compact_mask
 
 Tables are built on the host with numpy exactly as the JAX package builds
 them (build_fast), or carried across from it (FastTables.from_numpy).
 
-Overflow (a cascade row with more than 16 phase-1 survivors, or more than
-`cap` candidates) never undercounts: the scan's future retries with the
-tiled torch scan fast_count_core at tile <= cap, which cannot overflow.
-The JAX package's slot route, mask route, sync ladder and match-dense pass
-are not ported yet (ROADMAP queue 1, items 4 and 6).
+Overflow (a sub-block or row with more candidates than its slots, or more
+than `cap` in all) never undercounts.  The scan's future retries through
+the JAX package's synchronous ladder: the mask pipeline with half-cap,
+full-cap and row-dense trials (compact_verify_retry), budget-sized pieces
+on saturated tables, and pieces split until they cannot overflow
+(_count_chunked).  Then the scanner adapts, as in the JAX package: one more
+filter stage after a false-candidate overflow (_k_extra), or the row-dense
+mask pass for every later scan after a match-driven one (_match_dense).
+fast_count_core, the tiled plain-torch scan, is the counterpart of the JAX
+package's xla backend and runs patterns longer than the kernels take.
 """
 
 from __future__ import annotations
@@ -54,9 +65,13 @@ DEFAULT_CAP = 1 << 16
 #: build; kept until the port refits it — ROADMAP "How to port")
 STAGE_CF = 5.0
 #: the slot route's per-block budget (pallas_filter.SLOT_RB * 128 starts,
-#: BLOCK_SLOTS candidates); _async_retry's adaptation reads it
-SLOT_BLOCK = 128 * 128
-BLOCK_SLOTS = 16
+#: BLOCK_SLOTS candidates); _pick_path and _async_retry read it
+SLOT_BLOCK = cuda_filter.SUB_BLOCK
+BLOCK_SLOTS = cuda_filter.BLOCK_SLOTS
+#: compact_mask's budgets on the mask route and the sync ladder: live
+#: 128-start rows kept, and candidates kept per row
+CAPROWS = 1 << 16
+ROW_SLOTS = 8
 
 
 def exact_wid_supported(sigma: int, m: int) -> bool:
@@ -181,8 +196,7 @@ def stages_for(ft: FastTables, n: int, cap: int) -> int:
 def stages_for_block(ft: FastTables, block_positions: int,
                      lam: float = 3.5, cf: float = STAGE_CF) -> int:
     """Stage count so expected false candidates per slot-route block stay
-    <= lam; len(ft.bitmaps) + 1 when no built prefix meets it.  (The slot
-    route itself is ROADMAP queue 1, item 4.)"""
+    <= lam; len(ft.bitmaps) + 1 when no built prefix meets it."""
     if ft.exact:
         return 1
     k = 1
@@ -311,7 +325,7 @@ def build_fast(patterns: np.ndarray, sigma: int, *,
 
 
 # ---------------------------------------------------------------------------
-# compaction and verification (torch ops; not kernels yet)
+# compaction and verification (torch ops, no host sync)
 # ---------------------------------------------------------------------------
 
 def nonzero_scatter(mask: torch.Tensor, size: int, fill: int) -> torch.Tensor:
@@ -330,6 +344,19 @@ def nonzero_scatter(mask: torch.Tensor, size: int, fill: int) -> torch.Tensor:
     return out[:size]
 
 
+def _take(vals: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
+    """vals[sel] where sel < len(vals), else -1 (torch gathers do not
+    clamp; sel comes from nonzero_scatter with fill len(vals))."""
+    return torch.cat([vals, vals.new_full((1,), -1)])[sel]
+
+
+def _pack(vals2d: torch.Tensor, cap: int) -> torch.Tensor:
+    """The positions of a position-valued matrix (-1 = empty) in row-major
+    order, densely packed into (cap,) int64, then -1."""
+    flat = vals2d.reshape(-1).to(torch.int64)
+    return _take(flat, nonzero_scatter(flat >= 0, cap, flat.shape[0]))
+
+
 def compact_valrows(vals2d: torch.Tensor, *, cap: int):
     """Compaction of a position-valued matrix (-1 = empty), e.g. the
     cascade's (R, 16) slots.  Returns (idxs (cap,) int64 positions densely
@@ -339,27 +366,58 @@ def compact_valrows(vals2d: torch.Tensor, *, cap: int):
     The JAX version also flags a packed row holding more than its row
     budget, an artefact of the TPU's 8:1 lane repack; here the per-row
     budget is the cascade's own ovf flag."""
-    flat = vals2d.reshape(-1).to(torch.int64)
-    live = flat >= 0
-    n_cand = live.sum()
-    sel = nonzero_scatter(live, cap, flat.shape[0])
-    idxs = torch.cat([flat, flat.new_full((1,), -1)])[sel]
-    return idxs, n_cand > cap, n_cand
+    n_cand = (vals2d >= 0).sum()
+    return _pack(vals2d, cap), n_cand > cap, n_cand
+
+
+def compact_slots(pos: torch.Tensor, counts: torch.Tensor, *,
+                  slots: int = BLOCK_SLOTS, cap: int = DEFAULT_CAP):
+    """Candidates of cuda_filter.filter_slots' output: pos (n_sub, slots)
+    positions in sub-block order (-1 empty), counts (n_sub,) the true
+    per-sub-block counts (the JAX package keeps them in lane `slots` of one
+    (n_sub, 128) matrix).  Returns (idxs (cap,) int64 densely packed then
+    -1, overflow 0-d bool, n_cand 0-d int64 — the true total).  Overflow if
+    any sub-block held more than `slots` candidates or the total exceeds
+    cap."""
+    counts = counts.to(torch.int64)
+    n_cand = counts.sum()
+    overflow = (counts > slots).any() | (n_cand > cap)
+    return _pack(pos[:, :slots], cap), overflow, n_cand
+
+
+def compact_mask(mask2d: torch.Tensor, *, caprows: int = CAPROWS,
+                 cap: int = DEFAULT_CAP, row_slots: int = ROW_SLOTS):
+    """Hierarchical compaction of cuda_filter.filter_mask's (R, 128) mask.
+
+    Keeps the first `caprows` rows holding candidates and the first
+    `row_slots` candidates of each, in position order, and packs the first
+    `cap` of those.  Returns (idxs (cap,) int64 positions then -1, overflow
+    0-d bool, n_cand 0-d int64 — the kept total).  Overflow if more than
+    caprows rows hold candidates, a kept row holds more than row_slots, or
+    more than cap are kept: the JAX package's conditions and outputs.  JAX
+    extracts slot k of every row with a rank reduction; here the kept
+    candidates are selected by their in-row cumsum and scattered once."""
+    R, width = int(mask2d.shape[0]), int(mask2d.shape[1])
+    live = mask2d.sum(1, dtype=torch.int32) > 0
+    n_rows = live.sum()
+    rows = nonzero_scatter(live, caprows, R)
+    row_live = rows < R
+    rows_c = rows.clamp(max=R - 1)
+    bits = mask2d[rows_c] != 0                          # (caprows, 128)
+    cum = torch.cumsum(bits, 1)
+    row_ovf = (row_live & (cum[:, -1] > row_slots)).any()
+    keep = (bits & (cum <= row_slots) & row_live[:, None]).reshape(-1)
+    n_cand = keep.sum()
+    lanes = torch.arange(width, device=mask2d.device)
+    pos = (rows_c[:, None] * width + lanes).reshape(-1)
+    idxs = _take(pos, nonzero_scatter(keep, cap, pos.shape[0]))
+    return idxs, (n_rows > caprows) | row_ovf | (n_cand > cap), n_cand
 
 
 def words_len(n: int, words: int) -> int:
     """Length of the int32 word view of an n-byte text plus the gather
     margin (_verify_matched reads words+1 consecutive words per start)."""
     return -(-n // 4) + words + 1
-
-
-def words_view(text: torch.Tensor, nw: int) -> torch.Tensor:
-    """(nw,) int32 little-endian words of the zero-padded text.  Always
-    padded to nw (pass words_len): the gathers below read past n/4."""
-    n = int(text.shape[0])
-    buf = torch.zeros(nw * 4, dtype=torch.uint8, device=text.device)
-    buf[:min(n, nw * 4)] = text[:nw * 4]
-    return buf.view(torch.int32)
 
 
 #: candidates per verification piece: bounds the (piece, words) temporaries
@@ -451,14 +509,46 @@ def verify_count(tw, idxs, ft: FastTables, *, n_starts: int) -> torch.Tensor:
     return total
 
 
+def verify_text(ft: FastTables, text: torch.Tensor, idxs) -> torch.Tensor:
+    """verify_count over text's word view (cuda_filter.words_view)."""
+    n = int(text.shape[0])
+    tw = cuda_filter.words_view(text, words_len(n, ft.words))
+    return verify_count(tw, idxs, ft, n_starts=n - ft.m + 1)
+
+
 def count_from_slots(ft: FastTables, text, slots, ovf, *, cap: int):
     """The cascade's epilogue: compact its (R, 16) slots, verify the
     candidates.  Returns (count 0-d int32, overflow 0-d int32)."""
-    n = int(text.shape[0])
     idxs, o, _ = compact_valrows(slots, cap=cap)
-    tw = words_view(text, words_len(n, ft.words))
-    c = verify_count(tw, idxs, ft, n_starts=n - ft.m + 1)
+    c = verify_text(ft, text, idxs)
     return c.to(torch.int32), (o | (ovf != 0)).to(torch.int32)
+
+
+def count_from_sub_blocks(ft: FastTables, text, pos, counts, *, cap: int):
+    """The slot route's epilogue: compact filter_slots' output, verify the
+    candidates.  Returns (count 0-d int32, overflow 0-d int32)."""
+    idxs, o, _ = compact_slots(pos, counts, slots=BLOCK_SLOTS, cap=cap)
+    return verify_text(ft, text, idxs).to(torch.int32), o.to(torch.int32)
+
+
+def compact_verify_retry(mask2d, tw, ft: FastTables, *, cap: int,
+                         caprows: int, row_slots: int,
+                         n_starts: int) -> tuple[int, bool]:
+    """The sync ladder's trials over one mask: compact + verify at half the
+    cap, then the full cap, then the full cap at 128 row slots (a
+    match-dense row can exceed row_slots while the total fits), stopping at
+    the first trial that does not overflow.  Each trial reads its result
+    back.  Returns (count, overflowed) as python values."""
+    caps = [cap // 2, cap] if cap >= 8192 else [cap]
+    trials = [(tc, row_slots) for tc in caps] + [(cap, 128)]
+    for trial_cap, rs in trials:
+        idxs, o, _ = compact_mask(mask2d, caprows=min(caprows, trial_cap),
+                                  cap=trial_cap, row_slots=rs)
+        c = verify_count(tw, idxs, ft, n_starts=n_starts)
+        co = torch.stack([c, o.to(torch.int64)]).tolist()
+        if not co[1]:
+            break
+    return int(co[0]), bool(co[1])
 
 
 # ---------------------------------------------------------------------------
@@ -470,7 +560,7 @@ def fast_count_core(text: torch.Tensor, ft: FastTables, *,
     """Tiled plain-torch scan: (count 0-d int32, overflowed 0-d int32).
     overflowed = 1 means some tile had more than `cap` candidates and the
     count may undercount; with tile <= cap that cannot happen.  Runs on
-    text's device and never waits for it."""
+    text's device, launches no kernel and never waits for the device."""
     dev = text.device
     n = int(text.shape[0])
     m = ft.m
@@ -503,7 +593,8 @@ def fast_count_core(text: torch.Tensor, ft: FastTables, *,
             cand = cand & (bitmap_test(ft.bitmaps[s], key) == 1)
         overflow |= cand.sum() > cap
         idxs = nonzero_scatter(cand, cap, -1)
-        tw = words_view(chunk, words_len(tile + m - 1, ft.words))
+        tw = cuda_filter.words_view_plain(
+            chunk, words_len(tile + m - 1, ft.words))
         count += verify_count(tw, idxs, ft, n_starts=tile)
     return count.to(torch.int32), overflow.to(torch.int32)
 
@@ -535,7 +626,11 @@ class ScanFuture:
 
 class FastScanner:
     """Shared fast backend on the tables' device; counts equal every
-    engine's count (windows holding >= 1 pattern occurrence)."""
+    engine's count (windows holding >= 1 pattern occurrence).
+
+    Patterns of up to cuda_filter.MAX_KERNEL_M bytes take the kernels (the
+    JAX package's Pallas backend; on the CPU their plain versions), longer
+    ones the tiled fast_count_core (its xla backend)."""
 
     def __init__(self, ft: FastTables, *, tile: int = DEFAULT_TILE,
                  cap: int | None = None):
@@ -545,12 +640,14 @@ class FastScanner:
         self.m = ft.m
         self.sigma = ft.sigma
         self.device = ft.device
-        #: overflowing scans counted exactly by fast_count_core (the JAX
-        #: package's non-Pallas path) until the mask pipeline is ported
+        #: overflow retries taken (the JAX package's _retries): the
+        #: adaptation below must make them stop
         self.fallback_scans = 0
-        #: extra phase-1 stages, bumped after a false-candidate overflow so
-        #: later scans stop overflowing (as in the JAX package)
+        #: extra filter stages, bumped after a false-candidate overflow
         self._k_extra = 0
+        #: async scans run the row-dense mask pass (_device_count_dense)
+        #: after a match-driven overflow
+        self._match_dense = False
 
     def _as_text(self, text) -> torch.Tensor:
         if isinstance(text, torch.Tensor):
@@ -567,76 +664,248 @@ class FastScanner:
         check_count32(int(t.shape[0]))
         return t.contiguous()
 
+    def _kernels(self) -> bool:
+        return self.m <= cuda_filter.MAX_KERNEL_M
+
+    # -- the async path: one enqueue, no host sync --------------------------
+
     def count(self, text) -> int:
-        return self.count_async(text).result()
+        if self._kernels():
+            return self.count_async(text).result()
+        return self._count_retry(self._as_text(text))
 
     def count_async(self, text) -> ScanFuture:
         """Enqueue a scan; the count stays on the device until
         ScanFuture.result()."""
         t = self._as_text(text)
-        c, o = self._device_count(t)
+        if self._match_dense and self._kernels():
+            c, o = self._device_count_dense(t)
+        else:
+            c, o = self._device_count(t)
         return ScanFuture(c, o, retry=functools.partial(self._async_retry, t))
 
-    def count_with_overflow(self, text) -> tuple[int, bool]:
-        """The raw (count, overflowed) of one scan, no retry."""
-        c, o = self._device_count(self._as_text(text))
-        return int(c), bool(o)
+    def _zero(self, text):
+        return torch.zeros((), dtype=torch.int32, device=text.device)
 
     def _device_count(self, text):
         """(count, overflow) as device tensors, no host sync."""
-        n = int(text.shape[0])
         ft = self.ft
-        zero = torch.zeros((), dtype=torch.int32, device=text.device)
-        if n < ft.m:
-            return zero, zero
-        if ft.m > cuda_filter.MAX_KERNEL_M:     # beyond the kernels
+        if int(text.shape[0]) < ft.m:
+            return self._zero(text), self._zero(text)
+        if not self._kernels():
             return fast_count_core(text, ft, tile=self.tile, cap=self.cap)
         if ft.exact:
             return (cuda_filter.exact_count(text, ft.bitmaps[0], m=ft.m,
-                                            sigma=ft.sigma), zero)
+                                            sigma=ft.sigma), self._zero(text))
         return self._fp_device_count(text)
 
     def _pick_path(self, n, k):
-        """The JAX router's cascade entry: (path, k1, k_total).  The slot
-        and mask routes are not ported (ROADMAP queue 1, items 4 and 6), so
-        the cascade is taken whenever it is feasible."""
+        """Route an fp-tier scan among the slot route, the two-phase cascade
+        and the mask pipeline: the cheapest of _route_costs.  Returns
+        (path, k1, k_total)."""
+        costs = self._route_costs(n, k)
+        path = min(costs, key=lambda p: costs[p][0])
+        return path, costs[path][1], costs[path][2]
+
+    def _route_costs(self, n, k) -> dict:
+        """{path: (cost, k1, k_total)} of every feasible fp route, by the
+        JAX package's cost model in its bank-gather units (fitted on the
+        TPU; kept until the port refits them): slot k_s*B + 8, mask
+        k*B + 55, cascade k1*B + 11 + (kt-k1)*B/8 + 8, with B =
+        stage_bits/4096.  The slot route needs a reachable per-block
+        budget, the cascade a phase-1 split; the mask route is always
+        feasible."""
         ft = self.ft
         nb = len(ft.bitmaps)
+        B = ft.stage_bits // 4096
+        kb = stages_for_block(ft, SLOT_BLOCK)
+        costs = {"mask": (k * B + 55, None, k)}
+        if kb <= nb and (kb - k) * B <= 48:
+            ks = min(max(k, kb) + self._k_extra, nb)
+            costs["slot"] = (ks * B + 8, None, ks)
         k1 = k1_for(ft)
         if k1 is not None and nb >= 2:
             k1 = max(1, min(k1 + self._k_extra, nb - 1))
             kt = min(max(k, k1 + 1), nb)
-            return "cascade", k1, kt
-        raise NotImplementedError(
-            "no cascade split for these tables (k1_for is None or fewer "
-            "than 2 stages); the slot and mask routes are ROADMAP queue 1, "
-            "items 4 and 6")
+            if kt > k1:
+                costs["cascade"] = (k1 * B + 11 + (kt - k1) * B / 8 + 8,
+                                    k1, kt)
+        return costs
 
     def _fp_device_count(self, text):
+        """(count, overflow) of the routed fp-tier scan, no host sync.  Any
+        overflow (cap, sub-block slots, cascade rows, mask rows) is in the
+        flag; the future's retry then counts exactly."""
+        n = int(text.shape[0])
+        path, k1, kt = self._pick_path(n, stages_for(self.ft, n, self.cap))
+        return self._route_count(text, path, k1, kt)
+
+    def _route_count(self, text, path, k1, kt):
+        """(count, overflow) of one fp route with its stage counts (as
+        _route_costs gives them), no host sync."""
+        ft = self.ft
+        if path == "cascade":
+            slots, ovf = cuda_filter.cascade(text, ft.bitmaps[:kt], m=ft.m,
+                                             k1=k1, cd=ft.cd(kt))
+            return count_from_slots(ft, text, slots, ovf, cap=self.cap)
+        if path == "slot":
+            pos, counts = cuda_filter.filter_slots(text, ft.bitmaps[:kt],
+                                                   m=ft.m, cd=ft.cd(kt))
+            return count_from_sub_blocks(ft, text, pos, counts, cap=self.cap)
+        c, o = self._mask_verify(
+            text, kt, caprows=min(self.cap, max(CAPROWS, 1 << 17)),
+            row_slots=ROW_SLOTS)
+        return c.to(torch.int32), o.to(torch.int32)
+
+    def _mask_verify(self, piece, k, *, caprows, row_slots):
+        """The mask pipeline, count mode: filter_mask -> compact_mask ->
+        word view -> exact verify.  (count 0-d int64, overflow 0-d bool),
+        no host sync."""
+        ft = self.ft
+        mask2d = cuda_filter.filter_mask(piece, ft.bitmaps[:k], m=ft.m,
+                                         cd=ft.cd(k))
+        idxs, o, _ = compact_mask(mask2d,
+                                  caprows=min(caprows, mask2d.shape[0]),
+                                  cap=self.cap, row_slots=row_slots)
+        return verify_text(ft, piece, idxs), o
+
+    def _device_count_dense(self, text):
+        """The row-dense mask pass (kernels only): full cap and 128 row
+        slots on pieces of <= max(cap/2, 2^17) starts, which then cannot
+        overflow at <= cap/4 starts; bigger scans bound the extraction at
+        min(cap, 2^17) rows x 16 slots.  The steady pass of a match-dense
+        scanner and the piece scan of the sync ladder."""
         ft = self.ft
         n = int(text.shape[0])
-        _, k1, kt = self._pick_path(n, stages_for(ft, n, self.cap))
-        slots, ovf = cuda_filter.cascade(text, ft.bitmaps[:kt], m=ft.m,
-                                         k1=k1, cd=ft.cd(kt))
-        return count_from_slots(ft, text, slots, ovf, cap=self.cap)
+        if n < ft.m:
+            return self._zero(text), self._zero(text)
+        if ft.exact:
+            return (cuda_filter.exact_count(text, ft.bitmaps[0], m=ft.m,
+                                            sigma=ft.sigma), self._zero(text))
+        k = stages_for(ft, n, self.cap)
+        small = n - ft.m + 1 <= max(self.cap // 2, 1 << 17)
+        c, o = self._mask_verify(
+            text, k, caprows=self.cap if small else min(self.cap, 1 << 17),
+            row_slots=128 if small else 16)
+        return c.to(torch.int32), o.to(torch.int32)
+
+    # -- the sync ladder: each step reads its result back -------------------
+
+    def count_with_overflow(self, text) -> tuple[int, bool]:
+        """(count, overflowed) of the synchronous path, no adaptation: the
+        mask pipeline with its cap trials (fast_count_core beyond the
+        kernels' m)."""
+        t = self._as_text(text)
+        if self._kernels():
+            return self._count_pallas(t)
+        c, o = fast_count_core(t, self.ft, tile=self.tile, cap=self.cap)
+        return int(c), bool(o)
+
+    def _count_pallas(self, text) -> tuple[int, bool]:
+        ft = self.ft
+        n = int(text.shape[0])
+        if n < ft.m:
+            return 0, False
+        if ft.exact:
+            return int(cuda_filter.exact_count(text, ft.bitmaps[0], m=ft.m,
+                                               sigma=ft.sigma)), False
+        k = stages_for(ft, n, self.cap)
+        if n * ft.density ** k > self.cap / 4 and k >= len(ft.bitmaps):
+            # every built stage together still misses the candidate budget
+            # (saturated tables): scan in (m-1)-halo pieces sized to it, on
+            # the dense pass, 3 in flight; a piece that overflows is
+            # finished by _count_chunked, never by re-entering this branch
+            piece = int(max((self.cap / 4) / max(ft.density ** k, 1e-12),
+                            self.cap // 2))
+            piece = min(piece, n)
+            total, inflight = 0, []
+
+            def drain(item):
+                pt, co_d = item
+                c, o = co_d.tolist()
+                return self._count_chunked(pt) if o else c
+
+            for s in range(0, n - ft.m + 1, piece):
+                pt = text[s:min(s + piece + ft.m - 1, n)]
+                c_d, o_d = self._device_count_dense(pt)
+                inflight.append((pt, torch.stack([c_d, o_d])))
+                if len(inflight) >= 3:
+                    total += drain(inflight.pop(0))
+            for item in inflight:
+                total += drain(item)
+            return total, False
+        return self._count_pallas_whole(text, k)
+
+    def _count_pallas_whole(self, text, k) -> tuple[int, bool]:
+        ft = self.ft
+        n = int(text.shape[0])
+        mask2d = cuda_filter.filter_mask(text, ft.bitmaps[:k], m=ft.m,
+                                         cd=ft.cd(k))
+        tw = cuda_filter.words_view(text, words_len(n, ft.words))
+        return compact_verify_retry(mask2d, tw, ft, cap=self.cap,
+                                    caprows=CAPROWS, row_slots=ROW_SLOTS,
+                                    n_starts=n - ft.m + 1)
+
+    def _count_retry(self, text) -> int:
+        """The synchronous path: the cap trials, then budget-sized pieces
+        if every trial overflowed.  Counts are total functions of the
+        input, never an error about its density."""
+        c, o = self.count_with_overflow(text)
+        if o:
+            return self._count_chunked(text)
+        return c
+
+    def _count_chunked(self, text, *, depth: int = 4) -> int:
+        """Exact count in (m-1)-halo pieces, `depth` in flight, splitting
+        any piece that overflows; pieces of <= cap/4 starts cannot (the
+        dense pass runs them at the full cap and 128 row slots)."""
+        n = int(text.shape[0])
+        m = self.m
+        min_chunk = max(self.cap // 4, 1)
+        fn = self._device_count_dense if self._kernels() else (
+            lambda t: fast_count_core(t, self.ft, tile=self.tile,
+                                      cap=self.cap))
+        work = [(0, n - m + 1)]
+        inflight, total = [], 0
+        while work or inflight:
+            while work and len(inflight) < depth:
+                start, owned = work.pop()
+                c_d, o_d = fn(text[start:min(start + owned + m - 1, n)])
+                inflight.append((start, owned, torch.stack([c_d, o_d])))
+            start, owned, co_d = inflight.pop(0)
+            c, o = co_d.tolist()
+            if o:
+                if owned <= min_chunk:
+                    raise AssertionError(
+                        "count piece overflowed below the guaranteed size "
+                        "— this is a bug")
+                half = max(min_chunk, owned // 2)
+                for s in range(start, start + owned, half):
+                    work.append((s, min(half, start + owned - s)))
+            else:
+                total += c
+        return total
 
     def _async_retry(self, text) -> int:
-        """Overflow fallback: count exactly with fast_count_core at
-        tile <= cap, then add a phase-1 stage when the overflow came from
-        false candidates (the JAX package's _k_extra adaptation).  A
-        match-dense corpus, where JAX switches to its dense mask pass, keeps
-        retrying here until that pass is ported (ROADMAP queue 1, item 6)."""
+        """ScanFuture's overflow fallback: count exactly through the sync
+        ladder, then adapt so later scans stop overflowing:
+
+        - match-driven (mean matches per 16,384-start sub-block above
+          BLOCK_SLOTS/4, where the Poisson tail overflows some sub-block of
+          every large scan): switch async scans to the dense pass;
+        - false-candidate-driven: one more filter stage (at most 4);
+        - otherwise (stages exhausted, or too many matches for the cap
+          margin): the dense pass too, so no scan retries forever."""
         self.fallback_scans += 1
-        c, o = fast_count_core(text, self.ft, tile=min(self.tile, self.cap),
-                               cap=self.cap)
-        if int(o):
-            raise AssertionError("fast_count_core overflowed at tile <= cap")
-        c = int(c)
+        c = self._count_retry(text)
         if self.ft.exact:
             return c
         n_starts = max(1, int(text.shape[0]) - self.m + 1)
         mean_per_block = c * SLOT_BLOCK / n_starts
-        if (mean_per_block <= BLOCK_SLOTS // 4 and c <= self.cap // 4
-                and self._k_extra < 4):
+        if mean_per_block > BLOCK_SLOTS // 4:
+            self._match_dense = True
+        elif c <= self.cap // 4 and self._k_extra < 4:
             self._k_extra += 1
+        else:
+            self._match_dense = True
         return c
