@@ -21,14 +21,23 @@
      then counts on the dense mask pass without retrying, exact throughout;
    - saturated: 4 MiB, p=10k at 4096-bit stages (no cascade split): the
      mask route overflows and the budget-piece sync ladder counts exactly;
+   - positions: the exact tier's positions (38,046,940 on the 256 MiB
+     corpus, split into ~1,200 pieces), matches and count_per_pattern
+     (the window-id histogram), each against the ground truth on the 4 MiB
+     prefix and the plain exact_mask over the whole text; core() on the
+     text padded with sigma (the guarded count); count_stack of the corpus
+     cut into 8 rows; count_repeat_async; the fp tier's (m=32 p=10k)
+     positions, matches and count_per_pattern against the ground truth;
+     dense32's and saturated's positions (saturated's pieces split);
 5. times each path (median per-scan over 5 reps, CUDA events) on the
    kernels and on the plain versions, each kernel against its plain version
    and its bound, and words_view against one PyTorch call.  Each kernel is
    first held against its plain version, exactly, on the inputs the main
    paths gave it (the cascade at every bench tier's stages, filter_mask
-   at dense32's 7 and saturated's 32 stages).  A bound charges the work
-   the function needs (rolling fingerprints and window ids), not what the
-   kernels do today.
+   at dense32's 7 and saturated's 32 stages, exact_mask over the whole
+   corpus, the guarded count over the padded one), and the positions phase
+   is profiled per path.  A bound charges the work the function needs
+   (rolling fingerprints and window ids), not what the kernels do today.
 
 Any failed check raises: the exit code is then non-zero and no result
 line is printed.  The last line is {"ok": true, "device": {...}}.
@@ -59,20 +68,25 @@ PAT_SEED = 8 + M_CELL
 PLANTS = range(MiB, 3 * MiB, 256)
 MAX_RETRIES = 6
 
-#: the kernel wrappers of tpu_smatcher_torch.ops.cuda_filter: (source,
-#: the TPU kernel it replaces)
+#: the ported kernels, by their cuda_filter.LAUNCHES name: (the wrapper
+#: in tpu_smatcher_torch.ops.cuda_filter, source, the TPU kernel it
+#: replaces)
+_EXACT_CU = "tpu_smatcher_torch/csrc/exact_count.cu"
+_PF = "tpu_smatcher/ops/pallas_filter.py"
 KERNELS = {
-    "exact_count": ("tpu_smatcher_torch/csrc/exact_count.cu",
-                    "tpu_smatcher/ops/pallas_filter.py:886"),
-    "cascade": ("tpu_smatcher_torch/csrc/cascade.cu",
-                "tpu_smatcher/ops/pallas_filter.py:758"),
-    "filter_mask": ("tpu_smatcher_torch/csrc/filter.cu",
-                    "tpu_smatcher/ops/pallas_filter.py:1052"),
-    "filter_slots": ("tpu_smatcher_torch/csrc/filter.cu",
-                     "tpu_smatcher/ops/pallas_filter.py:559"),
-    "words_view": ("tpu_smatcher_torch/csrc/words.cu",
-                   "tpu_smatcher/ops/pallas_filter.py:1011"),
+    "exact_count": ("exact_count", _EXACT_CU, f"{_PF}:886"),
+    "exact_count_guard": ("exact_count", _EXACT_CU, f"{_PF}:202"),
+    "exact_mask": ("exact_mask", _EXACT_CU, f"{_PF}:220"),
+    "cascade": ("cascade", "tpu_smatcher_torch/csrc/cascade.cu",
+                f"{_PF}:758"),
+    "filter_mask": ("filter_mask", "tpu_smatcher_torch/csrc/filter.cu",
+                    f"{_PF}:1052"),
+    "filter_slots": ("filter_slots", "tpu_smatcher_torch/csrc/filter.cu",
+                     f"{_PF}:559"),
+    "words_view": ("words_view", "tpu_smatcher_torch/csrc/words.cu",
+                   f"{_PF}:1011"),
 }
+WRAPPERS = sorted({w for w, _, _ in KERNELS.values()})
 
 #: peak rates of one H100 SXM at 700 W: HBM bytes/s, and int32 operations/s
 #: (half the 67 TFLOP/s float32 rate: 64 int32 lanes per SM against 128
@@ -91,6 +105,10 @@ STAGE_TEST_OPS = 8
 #: one exact-tier start: the rolling window id (shift, or, mask), the bit
 #: test (word index, bit index, shift, and) and the sum
 EXACT_START_OPS = 8
+#: the pad guard per start: the distance to the last byte >= sigma rolls
+#: in O(1) (a compare and a select as the byte enters, a compare of the
+#: distance with m)
+GUARD_START_OPS = 3
 
 
 def log(msg):
@@ -134,9 +152,9 @@ def plain_kernels():
     """Every kernel wrapper replaced by its plain torch version, so the
     main path's own code runs on the card without the kernels."""
     from tpu_smatcher_torch.ops import cuda_filter as cf
-    saved = {k: getattr(cf, k) for k in KERNELS}
+    saved = {k: getattr(cf, k) for k in WRAPPERS}
     try:
-        for k in KERNELS:
+        for k in WRAPPERS:
             setattr(cf, k, getattr(cf, f"{k}_plain"))
         yield
     finally:
@@ -240,6 +258,28 @@ class Checks:
             f"sigma={ft.sigma} kernel={k} plain={p}")
         self._err("exact_count", abs(k - p), label)
 
+    def exact_guarded(self, label, text, pats):
+        """exact_mask and the guarded exact_count against their plain
+        versions (and each other), on text that may hold bytes >= sigma."""
+        import torch
+        from tpu_smatcher_torch.ops import cuda_filter as cf
+        from tpu_smatcher_torch.ops.fast import build_fast
+        ft = build_fast(pats.codes, pats.sigma, device="cuda")
+        t = torch.from_numpy(text).cuda()
+        args = dict(m=ft.m, sigma=ft.sigma)
+        mask = cf.exact_mask(t, ft.bitmaps[0], **args)
+        k = int(cf.exact_count(t, ft.bitmaps[0], guard=True, **args))
+        torch.cuda.synchronize()
+        pm = cf.exact_mask_plain(t, ft.bitmaps[0], **args)
+        p = int(cf.exact_count_plain(t, ft.bitmaps[0], guard=True, **args))
+        log(f"  exact_mask / exact_count_guard {label}: n={len(text)} "
+            f"m={ft.m} sigma={ft.sigma} kernel={k} plain={p} "
+            f"mask sum={int(mask.sum())}")
+        self._err("exact_mask", int((mask.int() - pm.int()).abs().max()),
+                  label)
+        self._err("exact_count_guard", abs(k - p), label)
+        assert int(mask.sum()) == k, f"mask sum != guarded count on {label}"
+
     def cascade(self, label, text, pats, stage_bits=None, want_ovf=None):
         import torch
         from tpu_smatcher_torch.ops import cuda_filter as cf
@@ -329,6 +369,21 @@ def kernel_checks():
     ck.exact("all-match", zeros,
              PatternSet(np.zeros((1, 8), np.uint8), Alphabet.dna()))
 
+    log("kernel vs plain (exact_mask, guarded exact_count, tolerance 0):")
+    for sigma, m in ((2, 16), (4, 8), (20, 3), (256, 2)):
+        for n in (16 * MiB + 77, MiB + 5, 1000, 100, m):
+            text, pats = case(sigma, max(n, 4 * m), m, 200, seed=n + sigma)
+            text = text[:n].copy()
+            if sigma < 256:                  # bytes >= sigma, the pad first
+                at = np.random.default_rng(n).integers(0, n, 1 + n // 512)
+                text[at[::2]] = sigma
+                text[at[1::2]] = 255
+            ck.exact_guarded(f"sigma={sigma}", text, pats)
+    alias = np.zeros(23, np.uint8)
+    alias[16:] = 4                           # a shard padded with sigma
+    ck.exact_guarded("pad alias", alias, PatternSet(
+        np.array([[0, 0, 0, 0, 0, 0, 1, 0]], np.uint8), Alphabet.dna()))
+
     log("kernel vs plain (cascade, tolerance 0):")
     for m in (8, 16, 32, 129, 513):
         for sigma, n in ((4, 16 * MiB + 77), (20, MiB + 3)):
@@ -397,13 +452,14 @@ def route_of(eng, n):
 
 
 def tiers_path(text, tdev, total):
-    """bench.py's five tiers through make_fast(pats).count."""
+    """bench.py's five tiers through make_fast(pats).count.  Returns the
+    engines and each tier's pattern codes, by name."""
     from tpu_smatcher_torch import make_fast
     from tpu_smatcher_torch.core import datagen
     from tpu_smatcher_torch.core.alphabet import Alphabet
 
     ab = Alphabet.dna()
-    engines, checks = [], []
+    engines, checks, codes = [], [], {}
     reset_launches()
     for name, m, p, anchor in TIERS:
         pats = datagen.generate_patterns(text, p, m, ab, frac_present=0.5,
@@ -412,6 +468,7 @@ def tiers_path(text, tdev, total):
         gate = eng.count(tdev[:N_GATE])
         full = eng.count(tdev)
         engines.append((name, eng))
+        codes[name] = pats.codes
         checks.append((name, pats, anchor, gate, full))
     read_launches("tiers", ("exact_count", "cascade", "words_view"), total)
     for (name, pats, anchor, gate, full), (_, eng) in zip(checks, engines):
@@ -426,7 +483,7 @@ def tiers_path(text, tdev, total):
         assert plain == full and not o, f"{name}: plain {plain} != {full}"
         assert route == "exact" or route[0] == "cascade", f"{name}: {route}"
         assert eng.fallback_scans == 0, f"{name}: overflow retry taken"
-    return engines
+    return engines, codes
 
 
 def slot32_path(text, tdev, total):
@@ -505,7 +562,7 @@ def dense32_path(text, tdev, pats, gate0, full0, total):
     assert eng.fallback_scans == retries, "dense32 kept retrying"
     assert plain == truth and not o, f"dense32: plain {plain} != {truth}"
     assert casc == truth and not co, f"dense32: cascade {casc} != {truth}"
-    return eng, t2
+    return eng, t2, truth
 
 
 def saturated_path(text, tdev, total):
@@ -537,7 +594,108 @@ def saturated_path(text, tdev, total):
     assert route_of(eng, N_GATE)[0] == "mask"
     assert pieces and eng.fallback_scans == 1, "saturated: not the ladder"
     assert got == truth == plain, f"saturated: {got} / {plain} != {truth}"
-    return eng, t3
+    return eng, t3, pats.codes
+
+
+def timed(fn):
+    """(fn's result, host-clock seconds to it, the device synchronised)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def positions_path(text, tdev, engines, codes, dense, sat, total):
+    """Positions, attribution, the guarded core and the batch API on
+    bench.py's corpus: the exact tier (m=8 p=10k) and the fp tier (m=32
+    p=10k) of the tiers path, then dense32's and saturated's texts.  Every
+    call is driven with the launch counters at 0, then checked."""
+    import numpy as np
+    import torch
+    from tpu_smatcher_torch.core import datagen
+    from tpu_smatcher_torch.ops import cuda_filter as cf
+
+    eng, fp = dict(engines)["exact"], dict(engines)["fp"]
+    anchor, fp_anchor = TIERS[0][3], TIERS[2][3]
+    m = eng.m
+    d_eng, t2, d_truth = dense
+    s_eng, t3, s_pats = sat
+    ext = torch.cat([tdev, torch.full((m - 1,), eng.sigma, dtype=torch.uint8,
+                                      device="cuda")])
+    rows = tdev.view(8, -1)
+    secs = {}
+    reset_launches()
+    pos, secs["exact positions"] = timed(lambda: eng.positions(tdev))
+    (pm, ids), secs["exact matches"] = timed(lambda: eng.matches(tdev))
+    per, secs["exact count_per_pattern"] = timed(
+        lambda: eng.count_per_pattern(tdev))
+    core_c, core_o = (int(x) for x in eng.core(ext))
+    stack = eng.count_stack(rows)
+    row_counts = eng.scan_many(list(rows))
+    count = eng.count(tdev)
+    rep3 = eng.count_repeat_async(tdev, 3).result()
+    fpos, secs["fp positions"] = timed(lambda: fp.positions(tdev))
+    (fpm, fids), secs["fp matches"] = timed(lambda: fp.matches(tdev))
+    fper, secs["fp count_per_pattern"] = timed(
+        lambda: fp.count_per_pattern(tdev))
+    fstack = fp.count_stack(rows)
+    frows = fp.scan_many(list(rows))
+    dpos = d_eng.positions(t2)
+    before = cf.LAUNCHES["filter_mask"]
+    spos, secs["saturated positions"] = timed(lambda: s_eng.positions(t3))
+    sat_pieces = cf.LAUNCHES["filter_mask"] - before
+    read_launches("positions", ("exact_mask", "exact_count_guard",
+                                "exact_count", "filter_mask", "words_view"),
+                  total)
+    log("positions phase (host clock): " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in secs.items()))
+
+    # the exact tier against the plain mask, the oracle and itself
+    bm = eng.ft.bitmaps[0]
+    want = torch.nonzero(cf.exact_mask_plain(tdev, bm, m=m, sigma=eng.sigma)
+                         .view(-1)).view(-1).cpu().numpy()
+    pats = codes["exact"]
+    gate = np.flatnonzero(datagen.match_starts(text[:N_GATE], pats))
+    head = pos[pos < N_GATE - m + 1]
+    unguarded = int(cf.exact_count_plain(ext, bm, m=m, sigma=eng.sigma))
+    log(f"exact positions: {len(pos)} (anchor {anchor}), gate prefix "
+        f"{len(head)} (oracle {len(gate)}); count_per_pattern sum "
+        f"{int(per.sum())}; core on text + {m - 1} pad bytes {core_c} "
+        f"(overflow {core_o}; unguarded {unguarded}); count_stack of 8 rows "
+        f"{stack} (rows {sum(row_counts)}); count_repeat_async x3 {rep3} "
+        f"(count {count})")
+    assert len(pos) == anchor, f"exact positions {len(pos)} != {anchor}"
+    assert np.array_equal(pos, want), "exact positions != plain exact_mask"
+    assert np.array_equal(head, gate), "exact positions != gate oracle"
+    assert np.array_equal(pm, pos), "exact matches' positions"
+    assert np.array_equal(ids[:len(gate)],
+                          datagen.match_ids(text, gate, pats)), "exact ids"
+    assert count > eng.cap // 2, "count_per_pattern did not histogram"
+    assert np.array_equal(np.bincount(ids, minlength=len(pats)), per), \
+        "exact count_per_pattern != bincount of the matches' ids"
+    assert (core_c, core_o) == (anchor, 0), f"core {core_c} != {anchor}"
+    assert stack == sum(row_counts), f"count_stack {stack}"
+    assert count == anchor and rep3 == 3 * count, f"repeat {rep3}"
+
+    fpats = codes["fp"]
+    log(f"fp positions: {len(fpos)} (anchor {fp_anchor}), matches "
+        f"{len(fpm)}, count_per_pattern sum {int(fper.sum())}, count_stack "
+        f"of 8 rows {fstack} (rows {sum(frows)}); dense32 "
+        f"positions {len(dpos)} (count {d_truth}); saturated positions "
+        f"{len(spos)} in {sat_pieces} pieces")
+    assert len(fpos) == fp_anchor and np.array_equal(fpm, fpos), "fp pos"
+    assert fstack == sum(frows), f"fp count_stack {fstack}"
+    assert np.array_equal(fids, datagen.match_ids(text, fpos, fpats)), \
+        "fp ids != datagen.match_ids"
+    assert np.array_equal(np.bincount(fids, minlength=len(fpats)), fper), \
+        "fp count_per_pattern"
+    assert len(dpos) == d_truth, f"dense32 positions {len(dpos)}"
+    sat_gate = np.flatnonzero(datagen.match_starts(text[:N_GATE], s_pats))
+    assert np.array_equal(spos, sat_gate), "saturated positions != oracle"
+    assert sat_pieces > 1, "saturated positions did not split"
+    return ext
 
 
 # ---------------------------------------------------------------------------
@@ -596,6 +754,45 @@ def kernel_time(card, ck, label, name, kern, plain, bnd, library=None):
         + (f", library call {lib_ms:.3f} ms" if library is not None else ""))
     return {"ms": ms, "plain_ms": p_ms, "bound_ms": bnd[0],
             "bound_by": bnd[1], "library_ms": lib_ms}
+
+
+def positions_timings(card, ck, tdev, ext, engines):
+    """Profiles of the positions phase's paths, and exact_mask and the
+    guarded exact_count on its inputs."""
+    from tpu_smatcher_torch.ops import cuda_filter as cf
+    eng, fp = dict(engines)["exact"], dict(engines)["fp"]
+    profile(card, "exact positions", lambda: eng.positions(tdev), reps=1)
+    profile(card, "exact count_per_pattern",
+            lambda: eng.count_per_pattern(tdev))
+    profile(card, "fp matches", lambda: fp.matches(tdev))
+    rows = tdev.view(8, -1)
+    for label, e in (("exact", eng), ("fp", fp)):
+        # the rows summed on the device against scan_many's host sum
+        st = cuda_ms(lambda: e.count_stack(rows))
+        sm = cuda_ms(lambda: sum(e.scan_many(list(rows))))
+        log(f"[{card}] {label} stack of 8 rows: count_stack {st:.3f} ms, "
+            f"sum(scan_many) {sm:.3f} ms")
+        profile(card, f"{label} count_stack", lambda: e.count_stack(rows))
+        profile(card, f"{label} sum(scan_many)",
+                lambda: sum(e.scan_many(list(rows))))
+    ft = eng.ft
+    n, bm = int(tdev.shape[0]), ft.bitmaps[0]
+    args = dict(m=ft.m, sigma=ft.sigma)
+    rows = -(-(n - ft.m + 1) // cf.ROW)
+    per_kernel = {"exact_mask": kernel_time(
+        card, ck, "exact positions", "exact_mask",
+        lambda: cf.exact_mask(tdev, bm, **args),
+        lambda: cf.exact_mask_plain(tdev, bm, **args),
+        bound(n + bm.numel() * 4 + rows * cf.ROW,
+              (n - ft.m + 1) * (EXACT_START_OPS + GUARD_START_OPS)))}
+    ne = int(ext.shape[0])
+    per_kernel["exact_count_guard"] = kernel_time(
+        card, ck, "core, padded text", "exact_count_guard",
+        lambda: cf.exact_count(ext, bm, guard=True, **args),
+        lambda: cf.exact_count_plain(ext, bm, guard=True, **args),
+        bound(ne + bm.numel() * 4 + 4,
+              (ne - ft.m + 1) * (EXACT_START_OPS + GUARD_START_OPS)))
+    return per_kernel
 
 
 def timings(card, ck, tdev, engines, slot_eng, dense, sat):
@@ -659,7 +856,7 @@ def timings(card, ck, tdev, engines, slot_eng, dense, sat):
         bound(n + 4 * nw, 0),
         library=lambda: F.pad(tdev, (0, 4 * nw - n)).view(torch.int32))
 
-    d_eng, t2 = dense
+    d_eng, t2, _ = dense
     path_times(card, "dense32 (dense pass)", d_eng, t2, async_scan)
     ft = d_eng.ft
     k = stages_for(ft, n, d_eng.cap)
@@ -671,7 +868,7 @@ def timings(card, ck, tdev, engines, slot_eng, dense, sat):
         lambda: cf.filter_mask_plain(t2, ft.bitmaps[:k], **args),
         bound(n + stage_bytes(ft, k) + rows * cf.ROW, fp_filter_ops(ft, n, k)))
 
-    s_eng, t3 = sat
+    s_eng, t3, _ = sat
     path_times(card, "saturated (count, with the sync ladder)", s_eng, t3,
                sync_scan)
     ft = s_eng.ft
@@ -709,18 +906,24 @@ def main() -> int:
     log(f"corpus: {N_FULL} bytes DNA seed 7 "
         f"({time.perf_counter() - t0:.1f} s)")
     total = {k: 0 for k in KERNELS}
-    engines = tiers_path(text, tdev, total)
+    engines, codes = tiers_path(text, tdev, total)
     pats, slot_eng, gate0, full0 = slot32_path(text, tdev, total)
     dense = dense32_path(text, tdev, pats, gate0, full0, total)
     sat = saturated_path(text, tdev, total)
-    log(f"main paths done at {time.perf_counter() - t0:.1f} s; launches "
-        f"{total}")
+    t1 = time.perf_counter()
+    ext = positions_path(text, tdev, engines, codes, dense, sat,
+                         total)
+    log(f"main paths done at {time.perf_counter() - t0:.1f} s (positions "
+        f"phase {time.perf_counter() - t1:.1f} s); launches {total}")
     per_kernel = timings(card, ck, tdev, engines, slot_eng, dense, sat)
-    log(f"timings done at {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    per_kernel.update(positions_timings(card, ck, tdev, ext, engines))
+    log(f"timings done at {time.perf_counter() - t0:.1f} s (positions "
+        f"phase {time.perf_counter() - t1:.1f} s)")
 
     kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
                 "launches": total[k], "max_abs_err": ck.max_err[k],
-                **per_kernel[k]} for k, (src, rep) in KERNELS.items()]
+                **per_kernel[k]} for k, (_, src, rep) in KERNELS.items()]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

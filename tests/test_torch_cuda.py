@@ -8,6 +8,7 @@ so they run where only the port is installed:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -213,3 +214,100 @@ def test_count_async_does_not_wait_for_the_device(cuda, kind):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert fut.result() == truth
+
+
+#: (sigma, m) of the exact-tier kernel checks: m*bits <= 16 at each sigma
+EXACT_GUARD_CASES = [(2, 16), (4, 8), (20, 3), (256, 2)]
+
+
+@pytest.mark.parametrize("sigma,m", EXACT_GUARD_CASES)
+def test_exact_mask_and_guard_kernels_match_plain(cuda, sigma, m):
+    """exact_mask and exact_count(guard=True) equal their plain versions
+    bit for bit over ragged lengths, with bytes >= sigma planted where the
+    alphabet leaves room for them (sigma = 256 has none)."""
+    text, pats = make_case(sigma, m, 200, 300_007, seed=sigma + m)
+    text = text.copy()
+    if sigma < 256:
+        at = np.random.default_rng(sigma).integers(0, len(text), 3000)
+        text[at[::2]] = sigma                    # the pad symbol
+        text[at[1::2]] = 255
+    bm = tfast.build_fast(pats.codes, sigma, device=cuda).bitmaps[0]
+    for n in (m, 127, 128 * 40 + 5, 300_007):
+        t = torch.from_numpy(text[:n].copy()).to(cuda)
+        before = dict(cf.LAUNCHES)
+        mask = cf.exact_mask(t, bm, m=m, sigma=sigma)
+        count = cf.exact_count(t, bm, m=m, sigma=sigma, guard=True)
+        torch.cuda.synchronize()
+        assert cf.LAUNCHES["exact_mask"] == before["exact_mask"] + 1
+        assert cf.LAUNCHES["exact_count_guard"] == \
+            before["exact_count_guard"] + 1
+        assert cf.LAUNCHES["exact_count"] == before["exact_count"]
+        assert torch.equal(mask, cf.exact_mask_plain(t, bm, m=m, sigma=sigma))
+        assert int(count) == int(cf.exact_count_plain(t, bm, m=m, sigma=sigma,
+                                                      guard=True))
+        assert int(count) == int(mask.sum()) == \
+            datagen.count_matches(text[:n], pats)
+        # unguarded, kernel and plain are one function of any bytes
+        assert int(cf.exact_count(t, bm, m=m, sigma=sigma)) == \
+            int(cf.exact_count_plain(t, bm, m=m, sigma=sigma))
+
+
+@pytest.mark.parametrize("sigma,m,p_size,n", [CASES[2], CASES[3]])
+def test_positions_on_the_card_equal_cpu(cuda, sigma, m, p_size, n):
+    """positions, matches and count_per_pattern on the card equal the same
+    calls on the CPU, through exact_mask (exact tier) or filter_mask and
+    words_view (fingerprint tier); a small cap makes the pieces split."""
+    text, pats = make_case(sigma, m, p_size, n, seed=3 * sigma + m)
+    for cap in (None, 64):
+        kw = {} if cap is None else {"cap": cap}
+        eng = make_fast(pats, device=cuda, **kw)
+        ref = make_fast(pats, device="cpu", **kw)
+        t = torch.from_numpy(text).to(cuda)
+        names = ["exact_mask"] if eng.ft.exact else ["filter_mask",
+                                                     "words_view"]
+        before = dict(cf.LAUNCHES)
+        pos = eng.positions(t)
+        for name in names:
+            assert cf.LAUNCHES[name] > before[name], name
+        pm, ids = eng.matches(t)
+        rpm, rids = ref.matches(text)
+        np.testing.assert_array_equal(pos, ref.positions(text))
+        np.testing.assert_array_equal(pm, rpm)
+        np.testing.assert_array_equal(ids, rids)
+        np.testing.assert_array_equal(eng.count_per_pattern(t),
+                                      ref.count_per_pattern(text))
+        assert len(pos) == datagen.count_matches(text, pats)
+
+
+def test_core_guards_the_pad_on_the_card(cuda):
+    from tpu_smatcher_torch.core.alphabet import Alphabet
+    from tpu_smatcher_torch.core.patterns import PatternSet
+    pats = PatternSet(np.array([[0, 0, 0, 0, 0, 0, 1, 0]], np.uint8),
+                      Alphabet.dna())
+    eng = make_fast(pats, device=cuda)
+    ext = torch.zeros(23, dtype=torch.uint8, device=cuda)
+    ext[16:] = 4                                   # the shard's sigma pad
+    before = cf.LAUNCHES["exact_count_guard"]
+    c, o = eng.core(ext)
+    assert (int(c), int(o)) == (0, 0)
+    assert cf.LAUNCHES["exact_count_guard"] == before + 1
+    assert int(cf.exact_count(ext, eng.ft.bitmaps[0], m=8, sigma=4)) == 1
+
+
+@pytest.mark.parametrize("kind", ["exact", "slot"])
+def test_repeat_and_stack_do_not_wait_for_the_device(cuda, kind):
+    """count_repeat_async and count_stack_async only enqueue."""
+    eng, t, truth = _sync_free_case(kind)
+    eng.count(t)                               # warm: lazy build and caches
+    n = int(t.shape[0]) // 4 * 4
+    batch = t[:n].view(4, -1)
+    want = sum(eng.scan_many(list(batch)))
+    eng.count_stack(batch)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rep = eng.count_repeat_async(t, 3)
+        stack = eng.count_stack_async(batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert rep.result() == 3 * truth
+    assert stack.result() == want

@@ -47,7 +47,7 @@ def test_wide_case_routes_like_jax(frac):
     row (a lane-repack artefact the port does not have) and retries."""
     text, pats = wide_case(frac)
     jft = jfast.build_fast(pats.codes, 4, stage_bits=32768)
-    tft = tfast.build_fast(pats.codes, 4, stage_bits=32768)
+    tft = tfast.build_fast(pats.codes, 4, stage_bits=32768, device="cpu")
     jeng = jfast.FastScanner(jft, cap=1 << 14, backend="pallas",
                              interpret=True)
     eng = tfast.FastScanner(tft, cap=1 << 14)
@@ -77,7 +77,8 @@ def test_dense_corpus_falls_back_exact():
     # compactions small; the route (cascade) is the default cap's
     jeng = _jax_pallas(pats.codes, 4, 32768, cap=1 << 12)
     eng = tfast.FastScanner(tfast.build_fast(pats.codes, 4,
-                                             stage_bits=32768), cap=1 << 12)
+                                             stage_bits=32768, device="cpu"),
+                            cap=1 << 12)
     assert eng.count_with_overflow(text) == jeng.count_with_overflow(text) \
         == (truth, False)
     assert eng.count(text) == jeng.count(text) == truth
@@ -96,7 +97,7 @@ def test_retry_adds_a_stage_after_false_candidate_overflow():
                                      seed=10)
     jeng = _jax_pallas(pats.codes, 4, 8192)
     eng = tfast.FastScanner(tfast.build_fast(pats.codes, 4,
-                                             stage_bits=8192))
+                                             stage_bits=8192, device="cpu"))
     n = len(text)
     k = tfast.stages_for(eng.ft, n, eng.cap)
     before = eng._pick_path(n, k)
@@ -115,11 +116,11 @@ def test_fast_count_core_and_overflow_flag():
     for case in (CASES[2], CASES[3], CASES[5]):
         sigma, m, p, n = case
         text, pats = make_case(sigma, m, p, n, seed=3 * sigma + m)
-        ft = tfast.build_fast(pats.codes, sigma)
+        ft = tfast.build_fast(pats.codes, sigma, device="cpu")
         c, o = tfast.fast_count_core(torch.from_numpy(text), ft,
                                      tile=1 << 14, cap=1 << 12)
         assert (int(c), int(o)) == (datagen.count_matches(text, pats), 0)
-    ft = tfast.build_fast(np.zeros((1, 16), np.uint8), 4)
+    ft = tfast.build_fast(np.zeros((1, 16), np.uint8), 4, device="cpu")
     zeros = torch.zeros(40_000, dtype=torch.uint8)
     _, o = tfast.fast_count_core(zeros, ft, tile=1 << 14, cap=1 << 8)
     assert int(o) == 1
@@ -149,8 +150,8 @@ def test_count_async_and_device_checks():
 
 def test_port_imports_no_jax():
     """A fresh interpreter that imports the port, makes data with its own
-    generator and counts on the CPU holds no jax and no tpu_smatcher*
-    module."""
+    generator, counts and enumerates positions and pattern ids on the CPU
+    holds no jax and no tpu_smatcher* module."""
     code = (
         "import sys\n"
         "import tpu_smatcher_torch as t\n"
@@ -158,8 +159,12 @@ def test_port_imports_no_jax():
         "ab = t.Alphabet.dna()\n"
         "text = datagen.generate_text(20000, ab, seed=1)\n"
         "pats = datagen.generate_patterns(text, 20, 16, ab, seed=2)\n"
-        "c = t.make_fast(pats, device='cpu').count(text)\n"
+        "s = t.make_fast(pats, device='cpu')\n"
+        "c = s.count(text)\n"
         "assert c == datagen.count_matches(text, pats), c\n"
+        "pos, ids = s.matches(text)\n"
+        "assert len(s.positions(text)) == len(pos) == c\n"
+        "assert s.count_per_pattern(text).sum() == c\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
         "       or k == 'tpu_smatcher' or k.startswith('tpu_smatcher.')]\n"
         "assert not bad, bad\n"

@@ -48,7 +48,7 @@ def jax_exact():
 @pytest.mark.parametrize("sigma,m,p", EXACT_CASES)
 def test_exact_plain_matches_pallas(jax_exact, sigma, m, p):
     text, pats, _ = _exact_inputs(sigma, m, p)
-    tft = tfast.build_fast(pats.codes, sigma)
+    tft = tfast.build_fast(pats.codes, sigma, device="cpu")
     for n in _exact_ns(m):
         t = torch.from_numpy(text[:n].copy())
         got = cf.exact_count_plain(t, tft.bitmaps[0], m=m, sigma=sigma)
@@ -87,7 +87,7 @@ def jax_cascade():
 @pytest.mark.parametrize("kind,want_ovf", [("sparse", 0), ("dense", 1)])
 def test_cascade_plain_matches_pallas(jax_cascade, kind, want_ovf):
     text, pats, jft, k1, kt = _cascade_inputs(kind)
-    tft = tfast.build_fast(pats.codes, 4, stage_bits=32768)
+    tft = tfast.build_fast(pats.codes, 4, stage_bits=32768, device="cpu")
     t = torch.from_numpy(text)
     slots, ovf = cf.cascade_plain(t, tft.bitmaps[:kt], m=pats.m, k1=k1,
                                   cd=tft.cd(kt))
@@ -107,7 +107,7 @@ def test_cascade_plain_matches_pallas(jax_cascade, kind, want_ovf):
 
 def test_exact_wrapper_on_cpu_runs_plain():
     text, pats, _ = _exact_inputs(4, 8, 200)
-    tft = tfast.build_fast(pats.codes, 4)
+    tft = tfast.build_fast(pats.codes, 4, device="cpu")
     t = torch.from_numpy(text)
     before = dict(cf.LAUNCHES)
     got = cf.exact_count(t, tft.bitmaps[0], m=8, sigma=4)
@@ -139,7 +139,7 @@ def test_word_view_matches_pallas(jax_cascade):
 @pytest.mark.parametrize("slot_ok", [True, False])
 def test_verify_matched_matches_jax(slot_ok):
     text, pats, jft, _, _ = _cascade_inputs("sparse")
-    tft = tfast.build_fast(pats.codes, 4, stage_bits=32768)
+    tft = tfast.build_fast(pats.codes, 4, stage_bits=32768, device="cpu")
     assert tft.slot_ok                      # so both flags are exact here
     n, m = len(text), pats.m
     n_starts = n - m + 1
@@ -216,7 +216,8 @@ def _filter_inputs(sigma, m, stage_bits):
     text, pats = make_case(sigma, m, 300, 70_003, seed=sigma + m)
     return (text, pats,
             jfast.build_fast(pats.codes, sigma, stage_bits=stage_bits),
-            tfast.build_fast(pats.codes, sigma, stage_bits=stage_bits))
+            tfast.build_fast(pats.codes, sigma, stage_bits=stage_bits,
+                             device="cpu"))
 
 
 @pytest.mark.parametrize("stage_bits", [4096, 32768])

@@ -54,7 +54,8 @@ def _scanners(pats, stage_bits, **kw):
         jfast.build_fast(pats.codes, pats.sigma, stage_bits=stage_bits),
         backend="pallas", interpret=True, **kw)
     eng = tfast.FastScanner(
-        tfast.build_fast(pats.codes, pats.sigma, stage_bits=stage_bits), **kw)
+        tfast.build_fast(pats.codes, pats.sigma, stage_bits=stage_bits,
+                         device="cpu"), **kw)
     return jeng, eng
 
 
@@ -186,7 +187,7 @@ def test_compact_verify_retry_matches_jax(cap, row_slots):
     text[5000:5200] = 0
     pats = PatternSet(codes, ab)
     jft = jfast.build_fast(codes, 4, stage_bits=4096)
-    tft = tfast.build_fast(codes, 4, stage_bits=4096)
+    tft = tfast.build_fast(codes, 4, stage_bits=4096, device="cpu")
     n, m, k = len(text), pats.m, 1
     t = torch.from_numpy(text)
     mask = cf.filter_mask(t, tft.bitmaps[:k], m=m, cd=tft.cd(k))
@@ -209,7 +210,7 @@ def test_slot_kernel_matches_mask_path():
     does, and the true per-sub-block counts either way
     (test_fast.py::test_slot_kernel_matches_mask_path)."""
     text, pats, _ = _case("dna16_p1000", 0.02)
-    eng = tfast.FastScanner(tfast.build_fast(pats.codes, 4))
+    eng = tfast.FastScanner(tfast.build_fast(pats.codes, 4, device="cpu"))
     ft = eng.ft
     t = torch.from_numpy(text)
     seen = set()
@@ -238,7 +239,8 @@ def test_slot_overflow_falls_back_exact():
     retry counts exactly (test_fast.py::test_slot_overflow_falls_back_exact)."""
     pats = PatternSet(np.zeros((1, 8), np.uint8), Alphabet.protein())
     text = np.zeros(50_000, np.uint8)
-    eng = tfast.FastScanner(tfast.build_fast(pats.codes, 20), cap=1 << 12)
+    eng = tfast.FastScanner(tfast.build_fast(pats.codes, 20, device="cpu"),
+                            cap=1 << 12)
     n = len(text)
     assert eng._pick_path(n, tfast.stages_for(eng.ft, n, eng.cap))[0] == \
         "slot"
@@ -267,7 +269,8 @@ def dense_text():
 
 def test_fast_dense(dense_text):
     text, pats, truth = dense_text
-    eng = tfast.FastScanner(tfast.build_fast(pats.codes, 20), cap=1024)
+    eng = tfast.FastScanner(tfast.build_fast(pats.codes, 20, device="cpu"),
+                            cap=1024)
     assert eng.count(text) == truth
     assert eng.fallback_scans == 1 and eng._match_dense
     assert eng.count_with_overflow(text)[1]     # the cap cannot hold them
@@ -279,7 +282,8 @@ def test_mixed_density(dense_text):
                             datagen.generate_text(20_000, Alphabet.of_size(20),
                                                   seed=3)])
     truth = datagen.count_matches(text2, pats)
-    eng = tfast.FastScanner(tfast.build_fast(pats.codes, 20), cap=1024)
+    eng = tfast.FastScanner(tfast.build_fast(pats.codes, 20, device="cpu"),
+                            cap=1024)
     assert eng.count(text2) == truth
 
 
@@ -290,7 +294,7 @@ def test_adversarial_adaptation_converges():
     text, jpats = _planted()
     pats = port_pats(jpats.codes, 4)
     truth = datagen.count_matches(text, pats)
-    eng = tfast.FastScanner(tfast.build_fast(pats.codes, 4))
+    eng = tfast.FastScanner(tfast.build_fast(pats.codes, 4, device="cpu"))
     t = torch.from_numpy(text)
     assert [eng.count(t) for _ in range(7)] == [truth] * 7
     mid = eng.fallback_scans

@@ -36,7 +36,8 @@ def _tables(case):
         _, pats = make_case(sigma, m, p, 20_000, seed=3 * sigma + m)
         codes, stage_bits = pats.codes, None
     return (jfast.build_fast(codes, sigma, stage_bits=stage_bits),
-            tfast.build_fast(codes, sigma, stage_bits=stage_bits))
+            tfast.build_fast(codes, sigma, stage_bits=stage_bits,
+                             device="cpu"))
 
 
 @pytest.mark.parametrize("case", TABLE_CASES)

@@ -33,9 +33,15 @@ _vp, _i32, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: source -> {C function: argument types}; every function returns a
 #: cudaError_t as int (0 = launched)
 SOURCES = {
-    # (text, n, m, bits, bitmap, nwords, out, device, stream)
-    "exact_count.cu": {"tsm_exact_count": [_vp, _i64, _i32, _i32, _vp, _i32,
-                                           _vp, _i32, _vp]},
+    "exact_count.cu": {
+        # (text, n, m, bits, sigma, guard, bitmap, nwords, out, device,
+        #  stream)
+        "tsm_exact_count": [_vp, _i64, _i32, _i32, _i32, _i32, _vp, _i32,
+                            _vp, _i32, _vp],
+        # (text, n, m, bits, sigma, bitmap, nwords, mask, rows, device,
+        #  stream)
+        "tsm_exact_mask": [_vp, _i64, _i32, _i32, _i32, _vp, _i32, _vp, _i64,
+                           _i32, _vp]},
     # (text, n, m, bitmaps, kt, stage_bits, k1, cd, slots, rows, ovf,
     #  device, stream)
     "cascade.cu": {"tsm_cascade": [_vp, _i64, _i32, _vp, _i32, _i32, _i32,

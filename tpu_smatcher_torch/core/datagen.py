@@ -47,6 +47,12 @@ def plant(text: np.ndarray, pattern: np.ndarray, positions) -> np.ndarray:
     return out
 
 
+def sliding_windows(text: np.ndarray, m: int) -> np.ndarray:
+    """(n - m + 1, m) zero-copy view of all length-m windows."""
+    return np.lib.stride_tricks.sliding_window_view(
+        np.ascontiguousarray(text), m)
+
+
 def match_starts(text: np.ndarray,
                  patterns: PatternSet | np.ndarray) -> np.ndarray:
     """Boolean array over window starts: True where the window equals at
@@ -56,8 +62,7 @@ def match_starts(text: np.ndarray,
     m = codes.shape[1]
     if len(text) < m:
         return np.zeros(0, dtype=bool)
-    win = np.lib.stride_tricks.sliding_window_view(
-        np.ascontiguousarray(text), m)
+    win = sliding_windows(text, m)
     # fixed-size byte keys for set membership
     win_keys = np.ascontiguousarray(win).view([("k", f"V{m}")]).reshape(-1)
     pat_keys = np.ascontiguousarray(codes).view([("k", f"V{m}")]).reshape(-1)
@@ -67,3 +72,28 @@ def match_starts(text: np.ndarray,
 def count_matches(text: np.ndarray, patterns: PatternSet | np.ndarray) -> int:
     """Ground truth: the number of window starts with >= 1 pattern match."""
     return int(match_starts(text, patterns).sum())
+
+
+def match_ids(text: np.ndarray, positions: np.ndarray,
+              patterns: PatternSet | np.ndarray) -> np.ndarray:
+    """Ground truth for attribution: the id of the pattern matching at each
+    of `positions` (which must all be match starts), the smallest id where
+    duplicate patterns share the window; int64.  O(N log p) by a search
+    over the sorted pattern keys; raises ValueError at a start where no
+    pattern matches."""
+    codes = (patterns.codes if isinstance(patterns, PatternSet)
+             else np.asarray(patterns, np.uint8))
+    p, m = codes.shape
+    positions = np.asarray(positions, np.int64)
+    if positions.size == 0:
+        return np.empty(0, np.int64)
+    text = np.asarray(text, np.uint8)
+    win = text[positions[:, None] + np.arange(m)]
+    win_keys = np.ascontiguousarray(win).view([("k", f"V{m}")]).reshape(-1)
+    pat_keys = np.ascontiguousarray(codes).view([("k", f"V{m}")]).reshape(-1)
+    order = np.argsort(pat_keys, kind="stable")   # stable: ties keep min id
+    srt = pat_keys[order]
+    idx = np.searchsorted(srt, win_keys, side="left")
+    if (idx >= p).any() or (srt[np.minimum(idx, p - 1)] != win_keys).any():
+        raise ValueError("positions contain a non-matching window start")
+    return order[idx].astype(np.int64)

@@ -33,7 +33,5 @@ def make_fast(patterns: PatternSet, *, device="cuda", **opts):
     dev = _device(device)
     codes, sigma = _codes(patterns)
     n_stages = opts.pop("n_stages", None)
-    s = FastScanner(build_fast(codes, sigma, n_stages=n_stages, device=dev),
-                    **opts)
-    s.pattern_codes = np.asarray(codes, np.uint8)
-    return s
+    return FastScanner(build_fast(codes, sigma, n_stages=n_stages,
+                                  device=dev), **opts)

@@ -2,7 +2,9 @@
 each beside its plain PyTorch version.  They replace the TPU kernels of
 tpu_smatcher/ops/pallas_filter.py:
 
-  exact_count   csrc/exact_count.cu  _exact_flat_kernel (:886)
+  exact_count   csrc/exact_count.cu  _exact_flat_kernel (:886), and with
+                                     guard=True _exact_kernel (:202)
+  exact_mask    csrc/exact_count.cu  _exact_mask_kernel (:220)
   cascade       csrc/cascade.cu      _cascade_kernel (:758)
   filter_mask   csrc/filter.cu       _filter_mask_flat_kernel (:1052)
   filter_slots  csrc/filter.cu       _filter_slots_flat_kernel (:559)
@@ -12,7 +14,8 @@ tpu_smatcher/ops/pallas_filter.py:
 
 A wrapper given a CUDA tensor launches its kernel (or raises); given a CPU
 tensor it runs the plain version, which has the same signature and the same
-outputs bit for bit.  LAUNCHES counts kernel launches per wrapper, so a run
+outputs bit for bit.  LAUNCHES counts kernel launches per TPU kernel
+replaced (the guarded exact count apart from the unguarded one), so a run
 can show that its main path went through the kernels.
 """
 
@@ -23,7 +26,7 @@ import ctypes
 import torch
 
 from tpu_smatcher_torch.ops.common import bits_per_char, cdiv
-from tpu_smatcher_torch.ops.keys import FP_MULTS, fp_keys, wid_keys
+from tpu_smatcher_torch.ops.keys import FP_MULTS, fp_keys, max_keys, wid_keys
 from tpu_smatcher_torch.ops.lookup import bitmap_test
 
 #: starts per row of the cascade's compaction and of the filter mask, and
@@ -41,8 +44,9 @@ MAX_KERNEL_M = 4097
 PLAIN_PIECE = 1 << 24
 
 #: kernel launches per wrapper (plain-version calls are not counted)
-LAUNCHES = {"exact_count": 0, "cascade": 0, "filter_mask": 0,
-            "filter_slots": 0, "words_view": 0}
+LAUNCHES = {"exact_count": 0, "exact_count_guard": 0, "exact_mask": 0,
+            "cascade": 0, "filter_mask": 0, "filter_slots": 0,
+            "words_view": 0}
 
 
 def _check(text: torch.Tensor, tables: torch.Tensor, tables_ndim: int):
@@ -79,48 +83,108 @@ def _raise_on(rc: int, name: str):
 
 
 # ---------------------------------------------------------------------------
-# kernel 1: exact-tier count
+# kernel 1: exact tier (count with or without the pad guard, and the mask)
 # ---------------------------------------------------------------------------
 
-def exact_count(text: torch.Tensor, bitmap: torch.Tensor, *, m: int,
-                sigma: int) -> torch.Tensor:
-    """Number of starts i < n-m+1 whose packed window id hits `bitmap`
-    ((nbits/32,) int32, nbits = max(4096, 2^(m*bits))), as a 0-d int32
-    tensor on text's device."""
+def _check_exact(text, bitmap, m, sigma):
     _check(text, bitmap, 1)
     bits = bits_per_char(sigma)
     if m * bits > 16:
         raise ValueError(f"exact tier needs m*bits <= 16, got m={m} "
                          f"bits={bits}")
+    return bits
+
+
+def exact_count(text: torch.Tensor, bitmap: torch.Tensor, *, m: int,
+                sigma: int, guard: bool = False) -> torch.Tensor:
+    """Number of starts i < n-m+1 whose packed window id hits `bitmap`
+    ((nbits/32,) int32, nbits = max(4096, 2^(m*bits))), as a 0-d int32
+    tensor on text's device.  guard=True drops windows holding a byte >=
+    sigma (the pad symbol of distributed shards); guard=False is defined
+    on in-alphabet text only (the TPU kernel sums shifted bytes where this
+    ORs them)."""
+    bits = _check_exact(text, bitmap, m, sigma)
     if text.device.type == "cpu":
-        return exact_count_plain(text, bitmap, m=m, sigma=sigma)
+        return exact_count_plain(text, bitmap, m=m, sigma=sigma, guard=guard)
     out = torch.zeros((), dtype=torch.int32, device=text.device)
     n = int(text.shape[0])
     if n < m:
         return out
     lib, dev, stream = _launch_args(text)
-    rc = lib.tsm_exact_count(text.data_ptr(), n, m, bits, bitmap.data_ptr(),
-                             int(bitmap.shape[0]), out.data_ptr(), dev,
-                             stream)
-    _raise_on(rc, "exact_count")
-    LAUNCHES["exact_count"] += 1
+    rc = lib.tsm_exact_count(text.data_ptr(), n, m, bits, sigma, int(guard),
+                             bitmap.data_ptr(), int(bitmap.shape[0]),
+                             out.data_ptr(), dev, stream)
+    name = "exact_count_guard" if guard else "exact_count"
+    _raise_on(rc, name)
+    LAUNCHES[name] += 1
     return out
 
 
-def exact_count_plain(text: torch.Tensor, bitmap: torch.Tensor, *, m: int,
-                      sigma: int) -> torch.Tensor:
-    """Plain torch version of exact_count (any device)."""
-    n = int(text.shape[0])
-    n_starts = max(0, n - m + 1)
-    bits = bits_per_char(sigma)
+def exact_hits(chunk: torch.Tensor, bitmap: torch.Tensor, *, m: int,
+               sigma: int, guard: bool) -> torch.Tensor:
+    """(len(chunk)-m+1,) bool: each start's window id hits bitmap (and,
+    with guard, the window holds no byte >= sigma); the plain versions'
+    shared step."""
     nbits = int(bitmap.shape[0]) * 32
+    keys = wid_keys(chunk, m, bits_per_char(sigma))
+    hit = ((bitmap_test(bitmap, keys.clamp(max=nbits - 1)) == 1)
+           & (keys < nbits))
+    if guard:
+        hit &= max_keys(chunk, m) < sigma
+    return hit
+
+
+def exact_count_plain(text: torch.Tensor, bitmap: torch.Tensor, *, m: int,
+                      sigma: int, guard: bool = False) -> torch.Tensor:
+    """Plain torch version of exact_count (any device)."""
+    n_starts = max(0, int(text.shape[0]) - m + 1)
     total = torch.zeros((), dtype=torch.int64, device=text.device)
     for s in range(0, n_starts, PLAIN_PIECE):
         e = min(s + PLAIN_PIECE, n_starts)
-        keys = wid_keys(text[s:e + m - 1], m, bits)
-        hit = bitmap_test(bitmap, keys.clamp(max=nbits - 1)) & (keys < nbits)
-        total += hit.sum()
+        total += exact_hits(text[s:e + m - 1], bitmap, m=m, sigma=sigma,
+                            guard=guard).sum()
     return total.to(torch.int32)
+
+
+def exact_mask(text: torch.Tensor, bitmap: torch.Tensor, *, m: int,
+               sigma: int) -> torch.Tensor:
+    """Per-start match mask of the exact tier, pad-guarded:
+    (ceil((n-m+1)/128), 128) int8, 1 where the window id hits `bitmap` and
+    the window holds no byte >= sigma, 0 elsewhere and at starts >= n-m+1
+    (filter_mask's layout).  Requires n >= m."""
+    bits = _check_exact(text, bitmap, m, sigma)
+    n = int(text.shape[0])
+    if not 1 <= m <= n:
+        raise ValueError(f"need 1 <= m <= n; m={m} n={n}")
+    if text.device.type == "cpu":
+        return exact_mask_plain(text, bitmap, m=m, sigma=sigma)
+    rows = cdiv(n - m + 1, ROW)
+    mask = torch.empty((rows, ROW), dtype=torch.int8, device=text.device)
+    lib, dev, stream = _launch_args(text)
+    rc = lib.tsm_exact_mask(text.data_ptr(), n, m, bits, sigma,
+                            bitmap.data_ptr(), int(bitmap.shape[0]),
+                            mask.data_ptr(), rows, dev, stream)
+    _raise_on(rc, "exact_mask")
+    LAUNCHES["exact_mask"] += 1
+    return mask
+
+
+def exact_mask_plain(text: torch.Tensor, bitmap: torch.Tensor, *, m: int,
+                     sigma: int) -> torch.Tensor:
+    """Plain torch version of exact_mask (any device)."""
+    n = int(text.shape[0])
+    n_starts = n - m + 1
+    rows = cdiv(n_starts, ROW)
+    mask = torch.empty(rows * ROW, dtype=torch.int8, device=text.device)
+    for s in range(0, rows * ROW, PLAIN_PIECE):
+        width = min(PLAIN_PIECE, rows * ROW - s)
+        chunk = torch.zeros(width + m - 1, dtype=torch.uint8,
+                            device=text.device)
+        chunk[:min(width + m - 1, n - s)] = text[s:s + width + m - 1]
+        pos = torch.arange(s, s + width, device=text.device)
+        mask[s:s + width] = exact_hits(chunk, bitmap, m=m, sigma=sigma,
+                                       guard=True) & (pos < n_starts)
+    return mask.view(rows, ROW)
 
 
 # ---------------------------------------------------------------------------

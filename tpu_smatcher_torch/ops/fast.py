@@ -40,7 +40,9 @@ import numpy as np
 import torch
 
 from tpu_smatcher_torch.ops import cuda_filter
-from tpu_smatcher_torch.ops.common import bits_per_char, cdiv, check_count32
+from tpu_smatcher_torch.ops.common import (bits_per_char, cdiv, check_count32,
+                                           stream_count_file,
+                                           stream_positions_file)
 from tpu_smatcher_torch.ops.keys import FP_MULTS, fp_keys, wid_keys
 from tpu_smatcher_torch.ops.lookup import bitmap_test, pack_bitmap, pack_rows
 
@@ -227,9 +229,10 @@ def k1_for(ft: FastTables, lam_row: float = 4.0) -> int | None:
 def build_fast(patterns: np.ndarray, sigma: int, *,
                n_stages: int | None = None,
                stage_bits: int | None = None,
-               device="cpu") -> FastTables:
+               device) -> FastTables:
     """Host-side table build, identical to tpu_smatcher.ops.fast.build_fast
-    (see there for the cost model's reasoning); tensors go to `device`."""
+    (see there for the cost model's reasoning); tensors go to `device`,
+    which the caller names (no implicit CPU)."""
     patterns = np.asarray(patterns, np.uint8)
     n_orig = patterns.shape[0]
 
@@ -441,8 +444,13 @@ def _fp_from_bytes(bytes2d: torch.Tensor, mult: int) -> torch.Tensor:
 
 
 def _verify_matched(text_words, idxs, bucket_ids, packed, bucket_fp2, *, m,
-                    words, lmax, eb, n_starts, slot_ok=False):
+                    words, lmax, eb, n_starts, slot_ok=False,
+                    return_pid=False):
     """(cap,) bool: exact verification at candidate starts (idxs, -1 pad).
+    return_pid=True also returns each candidate's matching INTERNAL
+    (deduped) pattern id, int64, -1 where unmatched: the one fp2 selects
+    when slot_ok, else the first bucket slot that matches (a window
+    matches at most one deduped pattern, so either is the id).
 
     Gathers words+1 int32 words per candidate from the word view,
     shift-combines them into the window's packed words, recomputes the
@@ -484,12 +492,32 @@ def _verify_matched(text_words, idxs, bucket_ids, packed, bucket_fp2, *, m,
             slot = torch.where(hit, l, slot)
             found |= hit
         pid = bucket_ids[key * lmax + slot].to(torch.int64)
-        return live & found & (pid >= 0) & full_eq(pid)
+        matched = live & found & (pid >= 0) & full_eq(pid)
+        if return_pid:
+            return matched, torch.where(matched, pid, -1)
+        return matched
     matched = torch.zeros_like(live)
+    sel_pid = torch.full_like(key, -1)
     for l in range(lmax):
         pid = bucket_ids[key * lmax + l].to(torch.int64)
-        matched |= live & (pid >= 0) & ~matched & full_eq(pid)
+        hit = live & (pid >= 0) & ~matched & full_eq(pid)
+        matched |= hit
+        if return_pid:
+            sel_pid = torch.where(hit, pid, sel_pid)
+    if return_pid:
+        return matched, sel_pid
     return matched
+
+
+def _verify_pieces(tw, idxs, ft: FastTables, *, n_starts: int,
+                   return_pid: bool):
+    """_verify_matched over idxs in pieces bounding the temporaries."""
+    piece = max(1, VERIFY_PIECE_ELEMS // (4 * ft.words + 8))
+    for s in range(0, int(idxs.shape[0]), piece):
+        yield _verify_matched(
+            tw, idxs[s:s + piece], ft.bucket_ids, ft.packed, ft.bucket_fp2,
+            m=ft.m, words=ft.words, lmax=ft.lmax, eb=ft.eb,
+            n_starts=n_starts, slot_ok=ft.slot_ok, return_pid=return_pid)
 
 
 def verify_count(tw, idxs, ft: FastTables, *, n_starts: int) -> torch.Tensor:
@@ -499,14 +527,20 @@ def verify_count(tw, idxs, ft: FastTables, *, n_starts: int) -> torch.Tensor:
     the temporaries, and never waits for the device: the JAX package
     gates chunks on the true candidate count with lax.cond, which torch
     cannot do without a host sync."""
-    piece = max(1, VERIFY_PIECE_ELEMS // (4 * ft.words + 8))
     total = torch.zeros((), dtype=torch.int64, device=idxs.device)
-    for s in range(0, int(idxs.shape[0]), piece):
-        total += _verify_matched(
-            tw, idxs[s:s + piece], ft.bucket_ids, ft.packed, ft.bucket_fp2,
-            m=ft.m, words=ft.words, lmax=ft.lmax, eb=ft.eb,
-            n_starts=n_starts, slot_ok=ft.slot_ok).sum()
+    for matched in _verify_pieces(tw, idxs, ft, n_starts=n_starts,
+                                  return_pid=False):
+        total += matched.sum()
     return total
+
+
+def verify_attr(tw, idxs, ft: FastTables, *, n_starts: int):
+    """(matched (cap,) bool, internal pattern id (cap,) int64, -1 where
+    unmatched) at candidate starts idxs (-1 padded), no host sync: the JAX
+    package's verify_attr_at."""
+    out = list(_verify_pieces(tw, idxs, ft, n_starts=n_starts,
+                              return_pid=True))
+    return (torch.cat([mt for mt, _ in out]), torch.cat([p for _, p in out]))
 
 
 def verify_text(ft: FastTables, text: torch.Tensor, idxs) -> torch.Tensor:
@@ -556,11 +590,15 @@ def compact_verify_retry(mask2d, tw, ft: FastTables, *, cap: int,
 # ---------------------------------------------------------------------------
 
 def fast_count_core(text: torch.Tensor, ft: FastTables, *,
-                    tile: int = DEFAULT_TILE, cap: int = DEFAULT_CAP):
+                    tile: int = DEFAULT_TILE, cap: int = DEFAULT_CAP,
+                    guard: bool = False):
     """Tiled plain-torch scan: (count 0-d int32, overflowed 0-d int32).
     overflowed = 1 means some tile had more than `cap` candidates and the
-    count may undercount; with tile <= cap that cannot happen.  Runs on
-    text's device, launches no kernel and never waits for the device."""
+    count may undercount; with tile <= cap that cannot happen.  guard=True
+    drops exact-tier windows holding a byte >= sigma (the pad of
+    distributed shards); the fingerprint tier verifies every window and
+    needs no guard.  Runs on text's device, launches no kernel and never
+    waits for the device."""
     dev = text.device
     n = int(text.shape[0])
     m = ft.m
@@ -582,8 +620,9 @@ def fast_count_core(text: torch.Tensor, ft: FastTables, *,
         chunk = padded[i * tile:(i + 1) * tile + m - 1]
         valid = iota < min(n_valid - i * tile, tile)
         if ft.exact:
-            keys = wid_keys(chunk, m, bits_per_char(ft.sigma))
-            count += (valid & (bitmap_test(ft.bitmaps[0], keys) == 1)).sum()
+            count += (valid & cuda_filter.exact_hits(
+                chunk, ft.bitmaps[0], m=m, sigma=ft.sigma,
+                guard=guard)).sum()
             continue
         fps = [fp_keys(chunk, m, FP_MULTS[s]) for s in range(3)]
         cand = valid
@@ -599,9 +638,85 @@ def fast_count_core(text: torch.Tensor, ft: FastTables, *,
     return count.to(torch.int32), overflow.to(torch.int32)
 
 
+def _positions_piece_plain(piece: torch.Tensor, ft: FastTables, *,
+                           cap: int):
+    """Plain-torch positions of one fp-tier piece, for patterns longer than
+    the kernels take (the JAX package's _positions_piece_xla, attr=True):
+    (idxs (cap,) int64 matched starts then -1, internal pattern ids (cap,)
+    int64 aligned with idxs, overflow 0-d bool).  Every start of the piece
+    is owned; the caller offsets by the piece's base."""
+    n = int(piece.shape[0])
+    m = ft.m
+    n_starts = n - m + 1
+    k = stages_for(ft, n, cap)
+    fps = [fp_keys(piece, m, FP_MULTS[s]) for s in range(3)]
+    cand = torch.ones(n_starts, dtype=torch.bool, device=piece.device)
+    for s, (C, D) in enumerate(ft.cd(k)):
+        key = (fps[0] + C * fps[1] + D * fps[2]) & (ft.stage_bits - 1)
+        cand &= bitmap_test(ft.bitmaps[s], key) == 1
+    idxs = nonzero_scatter(cand, cap, -1)
+    tw = cuda_filter.words_view_plain(piece, words_len(n, ft.words))
+    matched, pid = verify_attr(tw, idxs, ft, n_starts=n_starts)
+    return (torch.where(matched, idxs, -1), pid, cand.sum() > cap)
+
+
+def _exact_attr(piece: torch.Tensor, idxs: torch.Tensor,
+                wid_pids: torch.Tensor, *, m: int, sigma: int):
+    """(cap,) int64 smallest original pattern id at each matched start of
+    the exact tier (-1 padding): the packed window id recomputed at the
+    match (m byte gathers over the matches only), looked up in the wid ->
+    pid table."""
+    live = idxs >= 0
+    idc = idxs.clamp(0, max(int(piece.shape[0]) - m, 0))
+    bits = bits_per_char(sigma)
+    key = torch.zeros_like(idc)
+    for i in range(m):
+        key = (key << bits) | piece[idc + i].to(torch.int64)
+    pid = wid_pids[key.clamp(0, int(wid_pids.shape[0]) - 1)].to(torch.int64)
+    return torch.where(live, pid, -1)
+
+
+def _hist_delta(pids: torch.Tensor, *, n_orig: int) -> torch.Tensor:
+    """(n_orig,) int32 histogram of the non-negative pids (a per-piece
+    delta; the -1 of unmatched slots land in a dropped trash bin)."""
+    idx = torch.where(pids >= 0, pids, n_orig)
+    out = torch.zeros(n_orig + 1, dtype=torch.int32, device=pids.device)
+    return out.scatter_add_(0, idx, torch.ones_like(idx, dtype=torch.int32)
+                            )[:n_orig]
+
+
+def _exact_hist(text: torch.Tensor, wid_pids: torch.Tensor, *, m: int,
+                sigma: int, n_orig: int) -> torch.Tensor:
+    """(n_orig,) int32 per-pattern counts of the exact tier without
+    enumerating matches: every window's id determines its pattern (or
+    none), so the ids are histogrammed (torch.bincount, in pieces of
+    cuda_filter.PLAIN_PIECE starts) and the counts pushed through the wid
+    -> pid table.  The JAX package sorts the ids and searches the edges,
+    its measured optimum on the TPU; the histogram is the same."""
+    nb = int(wid_pids.shape[0])
+    n_starts = int(text.shape[0]) - m + 1
+    bits = bits_per_char(sigma)
+    wc = torch.zeros(nb + 1, dtype=torch.int64, device=text.device)
+    for s in range(0, n_starts, cuda_filter.PLAIN_PIECE):
+        e = min(s + cuda_filter.PLAIN_PIECE, n_starts)
+        keys = wid_keys(text[s:e + m - 1], m, bits)
+        # ids past the table (bytes >= sigma) go to the trash bin nb
+        wc += torch.bincount(keys.clamp(max=nb), minlength=nb + 1)
+    bins = torch.where(wid_pids < 0, n_orig, wid_pids).to(torch.int64)
+    hist = torch.zeros(n_orig + 1, dtype=torch.int64, device=text.device)
+    return hist.scatter_add_(0, bins, wc[:nb])[:n_orig].to(torch.int32)
+
+
 # ---------------------------------------------------------------------------
 # the scanner
 # ---------------------------------------------------------------------------
+
+def _host_tensor(a) -> torch.Tensor:
+    """A host array as a uint8 CPU tensor (a read-only one, such as a
+    memory-mapped file's piece, is copied: torch tensors are writable)."""
+    a = np.ascontiguousarray(a, np.uint8)
+    return torch.from_numpy(a if a.flags.writeable else a.copy())
+
 
 class ScanFuture:
     """Handle for an in-flight device scan: the (count, overflow) pair stays
@@ -649,19 +764,21 @@ class FastScanner:
         #: after a match-driven overflow
         self._match_dense = False
 
-    def _as_text(self, text) -> torch.Tensor:
+    def _as_text(self, text, ndim: int = 1) -> torch.Tensor:
+        """text (or, ndim=2, a batch of texts) as a contiguous uint8
+        tensor on the scanner's device; a host array is copied there, a
+        tensor elsewhere raises."""
         if isinstance(text, torch.Tensor):
             if text.device != self.device:
                 raise ValueError(f"text on {text.device}, scanner on "
                                  f"{self.device}")
             t = text
         else:
-            t = torch.from_numpy(np.ascontiguousarray(text, np.uint8)).to(
-                self.device)
-        if t.dtype != torch.uint8 or t.dim() != 1:
-            raise TypeError(f"text must be 1-D uint8, got {t.dtype} "
+            t = _host_tensor(text).to(self.device)
+        if t.dtype != torch.uint8 or t.dim() != ndim:
+            raise TypeError(f"text must be {ndim}-D uint8, got {t.dtype} "
                             f"{tuple(t.shape)}")
-        check_count32(int(t.shape[0]))
+        check_count32(int(t.numel()))
         return t.contiguous()
 
     def _kernels(self) -> bool:
@@ -678,11 +795,15 @@ class FastScanner:
         """Enqueue a scan; the count stays on the device until
         ScanFuture.result()."""
         t = self._as_text(text)
-        if self._match_dense and self._kernels():
-            c, o = self._device_count_dense(t)
-        else:
-            c, o = self._device_count(t)
+        c, o = self._async_scan()(t)
         return ScanFuture(c, o, retry=functools.partial(self._async_retry, t))
+
+    def _async_scan(self):
+        """The scan count_async runs now: the dense pass after a
+        match-driven retry, else the routed one."""
+        if self._match_dense and self._kernels():
+            return self._device_count_dense
+        return self._device_count
 
     def _zero(self, text):
         return torch.zeros((), dtype=torch.int32, device=text.device)
@@ -757,17 +878,24 @@ class FastScanner:
             row_slots=ROW_SLOTS)
         return c.to(torch.int32), o.to(torch.int32)
 
-    def _mask_verify(self, piece, k, *, caprows, row_slots):
-        """The mask pipeline, count mode: filter_mask -> compact_mask ->
-        word view -> exact verify.  (count 0-d int64, overflow 0-d bool),
-        no host sync."""
+    def _mask_verify(self, piece, k, *, caprows, row_slots, matched=False):
+        """The mask pipeline: filter_mask -> compact_mask -> word view ->
+        exact verify, no host sync.  matched=False: (count 0-d int64,
+        overflow 0-d bool); matched=True: (idxs (cap,) int64 candidate
+        starts then -1, per-candidate match mask, per-candidate internal
+        pattern id or -1, overflow)."""
         ft = self.ft
+        n = int(piece.shape[0])
         mask2d = cuda_filter.filter_mask(piece, ft.bitmaps[:k], m=ft.m,
                                          cd=ft.cd(k))
         idxs, o, _ = compact_mask(mask2d,
                                   caprows=min(caprows, mask2d.shape[0]),
                                   cap=self.cap, row_slots=row_slots)
-        return verify_text(ft, piece, idxs), o
+        if not matched:
+            return verify_text(ft, piece, idxs), o
+        tw = cuda_filter.words_view(piece, words_len(n, ft.words))
+        r, pid = verify_attr(tw, idxs, ft, n_starts=n - ft.m + 1)
+        return idxs, r, pid, o
 
     def _device_count_dense(self, text):
         """The row-dense mask pass (kernels only): full cap and 128 row
@@ -909,3 +1037,268 @@ class FastScanner:
         else:
             self._match_dense = True
         return c
+
+    # -- batches, repeats and the distribution core -------------------------
+
+    def scan_many(self, texts) -> list[int]:
+        """Counts of a batch of texts, pipelined: every scan is enqueued
+        before any result is read."""
+        return [f.result() for f in [self.count_async(t) for t in texts]]
+
+    def count_repeat_async(self, text, reps: int) -> ScanFuture:
+        """The same text scanned `reps` times back to back, all enqueued
+        with no host sync in between; the future holds the summed count
+        and the ORed overflow flag and has no retry (as in the JAX
+        package).  The timing primitive: (t(reps) - t(1)) / (reps - 1) is
+        one scan's device time."""
+        t = self._as_text(text)
+        return ScanFuture(*self._enqueue_sum([t] * reps))
+
+    def count_stack_async(self, batch) -> ScanFuture:
+        """Total count of a (k, nsh) batch of equal-length texts: the rows'
+        scans enqueued back to back and summed on the device.  An overflow
+        retries through scan_many (exact)."""
+        b = self._as_text(batch, ndim=2)
+        return ScanFuture(*self._enqueue_sum(list(b)),
+                          retry=lambda: sum(self.scan_many(list(b))))
+
+    def _enqueue_sum(self, texts):
+        """(summed count, ORed overflow) of the async scans of `texts`, on
+        the device, no host sync."""
+        scan = self._async_scan()
+        count = torch.zeros((), dtype=torch.int64, device=self.device)
+        over = torch.zeros((), dtype=torch.int32, device=self.device)
+        for t in texts:
+            c, o = scan(t)
+            count += c
+            over |= o.to(torch.int32)
+        return count, over
+
+    def count_stack(self, batch) -> int:
+        """The sum of count() over the batch's rows (count_stack_async)."""
+        return self.count_stack_async(batch).result()
+
+    def core(self, ext):
+        """Per-shard (count 0-d int32, overflow 0-d int32) on the device,
+        no host sync: what distribution sums over shards.  Shards and
+        halos may be padded with the out-of-alphabet byte sigma, so the
+        exact tier runs the guarded count; the fingerprint tier verifies
+        every window and runs its routed scan.  Patterns beyond the
+        kernels take the tiled core, guarded."""
+        t = self._as_text(ext)
+        ft = self.ft
+        if not self._kernels():
+            return fast_count_core(t, ft, tile=self.tile, cap=self.cap,
+                                   guard=True)
+        if int(t.shape[0]) < ft.m:
+            return self._zero(t), self._zero(t)
+        if ft.exact:
+            return (cuda_filter.exact_count(t, ft.bitmaps[0], m=ft.m,
+                                            sigma=ft.sigma, guard=True),
+                    self._zero(t))
+        return self._fp_device_count(t)
+
+    # -- streaming -----------------------------------------------------------
+
+    def count_file(self, path: str, *, chunk: int = 1 << 28,
+                   depth: int = 3) -> int:
+        """Count of a pre-encoded corpus file, streamed in `chunk`-byte
+        (m-1)-halo pieces, `depth` in flight (common.stream_count_file)."""
+        return stream_count_file(self.count_async, self.m, path,
+                                 chunk=chunk, depth=depth)
+
+    def positions_file(self, path: str, *,
+                       chunk: int = 1 << 28) -> np.ndarray:
+        """Sorted int64 match starts of a pre-encoded corpus file, streamed
+        in `chunk`-byte (m-1)-halo pieces (common.stream_positions_file)."""
+        return stream_positions_file(self.positions, self.m, path,
+                                     chunk=chunk)
+
+    # -- positions and attribution ------------------------------------------
+
+    def _need_attr_tables(self, what: str) -> None:
+        """Attribution runs on the tables' device only: tables without the
+        pattern-id arrays (build_fast always makes them) raise."""
+        ft = self.ft
+        if not ft.n_orig or (ft.wid_pids is None if ft.exact
+                             else ft.orig_ids is None):
+            raise ValueError(f"{what}() needs tables with attribution "
+                             "(n_orig and wid_pids / orig_ids): build them "
+                             "with build_fast")
+
+    def _positions_piece(self, piece):
+        """(idxs (cap,) int64 matched starts then -1, overflow 0-d bool)
+        over every start of `piece`, no host sync.  Exact tier: exact_mask
+        -> compact_mask; fingerprint tier: the mask pipeline with
+        attribution."""
+        ft = self.ft
+        if ft.exact:
+            mask2d = cuda_filter.exact_mask(piece, ft.bitmaps[0], m=ft.m,
+                                            sigma=ft.sigma)
+            # matches (not candidates) can fill a row: 128 row slots; the
+            # piece's own row count bounds caprows
+            idxs, o, _ = compact_mask(mask2d,
+                                      caprows=min(self.cap, mask2d.shape[0]),
+                                      cap=self.cap, row_slots=128)
+            return idxs, o
+        idxs, _, o = self._fp_piece(piece)
+        return idxs, o
+
+    def _fp_piece(self, piece):
+        """(idxs, internal pids, overflow) of the fingerprint tier's
+        matches in `piece`: the mask pipeline with attribution, or the
+        plain piece for patterns longer than the kernels take."""
+        ft = self.ft
+        if not self._kernels():
+            return _positions_piece_plain(piece, ft, cap=self.cap)
+        k = stages_for(ft, int(piece.shape[0]), self.cap)
+        idxs, matched, pid, o = self._mask_verify(
+            piece, k, caprows=self.cap, row_slots=128, matched=True)
+        return torch.where(matched, idxs, -1), pid, o
+
+    def _attr_piece(self, piece):
+        """(idxs, ORIGINAL pattern ids aligned with idxs (-1 padding),
+        overflow) of `piece`'s matches, no host sync."""
+        ft = self.ft
+        if ft.exact:
+            idxs, o = self._positions_piece(piece)
+            return idxs, _exact_attr(piece, idxs, ft.wid_pids, m=ft.m,
+                                     sigma=ft.sigma), o
+        idxs, pid, o = self._fp_piece(piece)
+        orig = ft.orig_ids[pid.clamp(min=0)].to(torch.int64)
+        return idxs, torch.where(pid >= 0, orig, -1), o
+
+    def _drive(self, t, piece_fn, on_piece, *, chunk=None, depth: int = 4,
+               to_host: bool = True):
+        """The split-on-overflow piece pipeline of positions and
+        attribution.  Pieces of owned starts (plus the m-1 halo) go through
+        piece_fn (device outputs..., overflow), up to `depth` in flight; a
+        piece that overflowed is split: after the first overflow of the
+        whole text into pieces sized from its match density, else in
+        halves.  Pieces of <= cap/2 starts cannot overflow, and one that
+        does raises AssertionError.  on_piece(start, *outputs) gets every
+        other piece, its outputs as numpy (read back with the flag, one
+        read per piece) or, with to_host=False, as device tensors (only the
+        flag is read)."""
+        n = int(t.shape[0])
+        m = self.m
+        total_starts = n - m + 1
+        min_chunk = max(self.cap // 2, 1)
+        if chunk is None:
+            work = [(0, total_starts)]
+        else:
+            chunk = max(int(chunk), min_chunk)
+            work = [(s, min(chunk, total_starts - s))
+                    for s in range(0, total_starts, chunk)]
+        work.reverse()                    # pop() scans in text order
+        inflight = []
+        guess = None                      # piece size after the 1st overflow
+        while work or inflight:
+            while work and len(inflight) < depth:
+                start, owned = work.pop()
+                *outs, o = piece_fn(t[start:min(start + owned + m - 1, n)])
+                read = (*outs, o) if to_host else (o,)
+                flat = torch.cat([x.to(torch.int64).reshape(-1)
+                                  for x in read])
+                inflight.append((start, owned, outs, flat))
+            start, owned, outs, flat = inflight.pop(0)
+            flat = flat.cpu().numpy()
+            if flat[-1]:
+                if owned <= min_chunk:
+                    raise AssertionError(
+                        "positions piece overflowed below the guaranteed "
+                        "size — this is a bug")
+                if guess is None and owned == total_starts:
+                    total = max(self.count(t), 1)
+                    guess = int(max(min_chunk,
+                                    min(owned // 2,
+                                        (self.cap // 2) * owned // total)))
+                split = max(min_chunk, min(guess or owned // 2, owned // 2))
+                # reversed, so pop() takes the split pieces in text order
+                work.extend(reversed([(s, min(split, start + owned - s))
+                                      for s in range(start, start + owned,
+                                                     split)]))
+                continue
+            if to_host:
+                outs = np.split(flat[:-1],
+                                np.cumsum([x.numel() for x in outs])[:-1])
+            on_piece(start, *outs)
+
+    def positions(self, text, *, chunk: int | None = None,
+                  depth: int = 4) -> np.ndarray:
+        """Sorted int64 start positions of ALL matching windows, unbounded:
+        the text is scanned in (m-1)-halo pieces, `depth` in flight, and a
+        piece whose matches exceed the device cap is split and scanned
+        again (_drive).  chunk= presizes the pieces (in starts) where the
+        density is known."""
+        t = self._as_text(text)
+        if int(t.shape[0]) < self.m:
+            return np.empty((0,), np.int64)
+        out = []
+
+        def on_piece(start, idxs):
+            idxs = idxs[idxs >= 0]
+            if idxs.size:
+                out.append((start, idxs + start))
+
+        self._drive(t, self._positions_piece, on_piece, chunk=chunk,
+                    depth=depth)
+        return _in_text_order(out)[0]
+
+    def matches(self, text):
+        """(positions (n,) int64 sorted, pattern_ids (n,) int64): every
+        match start and the ORIGINAL id of its pattern (the smallest id of
+        byte-identical duplicates), attributed on the device by the verify
+        stage (fp tier) or the wid -> pid table (exact tier)."""
+        self._need_attr_tables("matches")
+        t = self._as_text(text)
+        if int(t.shape[0]) < self.m:
+            return np.empty((0,), np.int64), np.empty((0,), np.int64)
+        out = []
+
+        def on_piece(start, idxs, pids):
+            live = idxs >= 0
+            if live.any():
+                out.append((start, idxs[live] + start, pids[live]))
+
+        self._drive(t, self._attr_piece, on_piece)
+        return _in_text_order(out, 2)
+
+    def count_per_pattern(self, text) -> np.ndarray:
+        """(p,) int64 match-start counts per original pattern, summed on
+        the device; they sum to count(text), and duplicates credit the
+        smallest id.  A match-dense exact-tier text (count > cap/2) is
+        histogrammed by window id (_exact_hist) instead of enumerated in
+        cap-sized pieces."""
+        self._need_attr_tables("count_per_pattern")
+        t = self._as_text(text)
+        ft = self.ft
+        n_orig = ft.n_orig
+        if ft.exact and int(t.shape[0]) >= ft.m \
+                and self.count(t) > self.cap // 2:
+            return _exact_hist(t, ft.wid_pids, m=ft.m, sigma=ft.sigma,
+                               n_orig=n_orig).cpu().numpy().astype(np.int64)
+        acc = torch.zeros(n_orig, dtype=torch.int32, device=t.device)
+
+        def piece_hist(piece):
+            _, pids, o = self._attr_piece(piece)
+            return _hist_delta(pids, n_orig=n_orig), o
+
+        def on_piece(start, delta):
+            acc.add_(delta)
+
+        if int(t.shape[0]) >= self.m:
+            self._drive(t, piece_hist, on_piece, to_host=False)
+        return acc.cpu().numpy().astype(np.int64)
+
+
+def _in_text_order(pieces, n_out: int = 1):
+    """Concatenate the per-piece arrays of _drive's pieces in text order.
+    Pieces own disjoint start ranges and each lists its starts in order,
+    so ordering the pieces by start sorts the whole (no element sort)."""
+    pieces = sorted(pieces, key=lambda p: p[0])
+    if not pieces:
+        return tuple(np.empty((0,), np.int64) for _ in range(n_out))
+    return tuple(np.concatenate([p[1 + i] for p in pieces])
+                 for i in range(n_out))
+

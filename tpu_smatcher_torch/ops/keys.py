@@ -7,6 +7,7 @@ over W0 columns; a length-L segment result is valid over columns
 
   window id      V_{a+b}[j] = (V_a[j] << b*bits) | V_b[j+a]
   fingerprint    F_{a+b}[j] = F_a[j] + mult^a * F_b[j+a]   (mod 2^16)
+  window max     M_{a+b}[j] = max(M_a[j], M_b[j+a])
 
 int64 throughout: a 16-bit fingerprint times a 16-bit power stays below
 2^32, and every step masks back to 16 bits, so nothing relies on overflow.
@@ -49,3 +50,13 @@ def fp_keys(t: torch.Tensor, m: int, mult: int) -> torch.Tensor:
     def comb(fa, fb, a, b):
         return (fa + pow(mult, a, 1 << 16) * fb) & 0xFFFF
     return _doubling(t.to(torch.int64), m, comb)
+
+
+def max_keys(t: torch.Tensor, m: int) -> torch.Tensor:
+    """Max char code over each m-window: the pad guard.  A window is real
+    text iff its max is < sigma (distribution pads shards and halos with
+    the out-of-alphabet symbol sigma, and for a power-of-two sigma a pad
+    window's packed id can alias a real pattern's, so exact-tier scans
+    that may see pads mask by this)."""
+    return _doubling(t.to(torch.int64), m,
+                     lambda va, vb, a, b: torch.maximum(va, vb))
