@@ -68,25 +68,42 @@ PAT_SEED = 8 + M_CELL
 PLANTS = range(MiB, 3 * MiB, 256)
 MAX_RETRIES = 6
 
-#: the ported kernels, by their cuda_filter.LAUNCHES name: (the wrapper
-#: in tpu_smatcher_torch.ops.cuda_filter, source, the TPU kernel it
-#: replaces)
+#: the ported kernels, by their cuda_filter.LAUNCHES name: (the wrapper's
+#: module, the wrapper, source, the TPU kernel it replaces)
 _EXACT_CU = "tpu_smatcher_torch/csrc/exact_count.cu"
+_STAGES_CU = "tpu_smatcher_torch/csrc/stages.cu"
 _PF = "tpu_smatcher/ops/pallas_filter.py"
+_PE = "tpu_smatcher/ops/pallas_engines.py"
+_CF = "tpu_smatcher_torch.ops.cuda_filter"
+_CE = "tpu_smatcher_torch.ops.cuda_engines"
 KERNELS = {
-    "exact_count": ("exact_count", _EXACT_CU, f"{_PF}:886"),
-    "exact_count_guard": ("exact_count", _EXACT_CU, f"{_PF}:202"),
-    "exact_mask": ("exact_mask", _EXACT_CU, f"{_PF}:220"),
-    "cascade": ("cascade", "tpu_smatcher_torch/csrc/cascade.cu",
+    "exact_count": (_CF, "exact_count", _EXACT_CU, f"{_PF}:886"),
+    "exact_count_guard": (_CF, "exact_count", _EXACT_CU, f"{_PF}:202"),
+    "exact_mask": (_CF, "exact_mask", _EXACT_CU, f"{_PF}:220"),
+    "cascade": (_CF, "cascade", "tpu_smatcher_torch/csrc/cascade.cu",
                 f"{_PF}:758"),
-    "filter_mask": ("filter_mask", "tpu_smatcher_torch/csrc/filter.cu",
+    "filter_mask": (_CF, "filter_mask", "tpu_smatcher_torch/csrc/filter.cu",
                     f"{_PF}:1052"),
-    "filter_slots": ("filter_slots", "tpu_smatcher_torch/csrc/filter.cu",
-                     f"{_PF}:559"),
-    "words_view": ("words_view", "tpu_smatcher_torch/csrc/words.cu",
+    "filter_slots": (_CF, "filter_slots",
+                     "tpu_smatcher_torch/csrc/filter.cu", f"{_PF}:559"),
+    "words_view": (_CF, "words_view", "tpu_smatcher_torch/csrc/words.cu",
                    f"{_PF}:1011"),
+    "stages": (_CE, "stages", _STAGES_CU, f"{_PE}:115"),
+    "stages_flat": (_CE, "stages", _STAGES_CU, f"{_PE}:213"),
 }
-WRAPPERS = sorted({w for w, _, _ in KERNELS.values()})
+WRAPPERS = sorted({(mod, w) for mod, w, _, _ in KERNELS.values()})
+
+#: the engines phase: (name, m) of the eleven engines, each on bench.py's
+#: p=10k pattern set of its m
+ENGINE_RUNS = (("ac", 8), ("sh", 8), ("sbom", 8), ("wm", 8), ("sog8", 8),
+               ("sog16", 16), ("ac", 32), ("sh", 32), ("sbom", 32),
+               ("wm", 32), ("sog32", 32))
+#: one engine per stage kind, profiled and its stage kernel timed: the
+#: exact tier (count mode) and the fingerprint tier (its async mode)
+PROFILED = (("ac", 8), ("wm", 8), ("sog8", 8), ("ac", 32), ("sh", 32),
+            ("wm", 32), ("sog32", 32))
+#: the engine whose stage-kernel time goes into the kernels line
+JSON_TIMED = {"stages_flat": ("ac", 8), "stages": ("wm", 8)}
 
 #: peak rates of one H100 SXM at 700 W: HBM bytes/s, and int32 operations/s
 #: (half the 67 TFLOP/s float32 rate: 64 int32 lanes per SM against 128
@@ -109,6 +126,17 @@ EXACT_START_OPS = 8
 #: in O(1) (a compare and a select as the byte enters, a compare of the
 #: distance with m)
 GUARD_START_OPS = 3
+#: the engines' value and bitmap stages, per start: (the rolling update
+#: every start needs, the test of a start that reaches the stage)
+#:   wid  the window id rolls (shift, or, mask); the bit test (word index,
+#:        bit index, shift, and, and into the hit)
+#:   wm   the 3-char hash rolls (multiply-add, mask); the table read and the
+#:        compare with 0
+#:   sog  the shift-or register E = (E << 1) | T[g] with the gram g rolling
+#:        (multiply-add, mask, the table read, shift, or); the test of
+#:        E's check bit (shift, and) — O(1), where the kernel does m-2
+#:        lookups per start
+STAGE_OPS = {"wid": (3, 5), "wm": (3, 2), "sog": (6, 2)}
 
 
 def log(msg):
@@ -151,15 +179,16 @@ def device_info():
 def plain_kernels():
     """Every kernel wrapper replaced by its plain torch version, so the
     main path's own code runs on the card without the kernels."""
-    from tpu_smatcher_torch.ops import cuda_filter as cf
-    saved = {k: getattr(cf, k) for k in WRAPPERS}
+    import importlib
+    saved = [(importlib.import_module(mod), w) for mod, w in WRAPPERS]
+    saved = [(mod, w, getattr(mod, w)) for mod, w in saved]
     try:
-        for k in WRAPPERS:
-            setattr(cf, k, getattr(cf, f"{k}_plain"))
+        for mod, w, _ in saved:
+            setattr(mod, w, getattr(mod, f"{w}_plain"))
         yield
     finally:
-        for k, fn in saved.items():
-            setattr(cf, k, fn)
+        for mod, w, fn in saved:
+            setattr(mod, w, fn)
 
 
 def reset_launches():
@@ -234,13 +263,7 @@ class Checks:
         version's on the same inputs, exactly."""
         import torch
         torch.cuda.synchronize()
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
-        err = 0
-        for g, w in zip(got, want, strict=True):
-            assert g.shape == w.shape, f"{name} shape on {label}"
-            if g.numel() and not torch.equal(g, w):
-                err = max(err, int((g.long() - w.long()).abs().max()))
+        err = _diff(got, want)
         log(f"  {name} {label}: kernel vs plain max_abs_err {err}")
         self._err(name, err, label)
 
@@ -346,6 +369,70 @@ class Checks:
         return crowded
 
 
+    def stages(self, label, text, chain, tables, m, sigma):
+        """The stage-chain kernel against stages_plain in all three modes,
+        guard on and off (and the flat call where the chain allows it)."""
+        import torch
+        from tpu_smatcher_torch.ops import cuda_engines as ce
+        t = torch.from_numpy(text).cuda()
+        flat_ok = all(k in ("wid", "fpset") for k, _ in chain)
+        errs = {}
+        for mode in ("count", "mask", "slots"):
+            for guard in (False, True):
+                flat = flat_ok and not guard
+                kw = dict(m=m, sigma=sigma, mode=mode, guard=guard)
+                got = ce.stages(t, chain, tables, flat=flat, **kw)
+                torch.cuda.synchronize()
+                want = ce.stages_plain(t, chain, tables, **kw)
+                name = "stages_flat" if flat else "stages"
+                errs[name, mode, guard] = _diff(got, want)
+                self._err(name, errs[name, mode, guard],
+                          f"{label} {mode} guard={guard}")
+        log(f"  stages {label}: n={len(text)} chain "
+            f"{[k for k, _ in chain]}, max_abs_err {max(errs.values())} "
+            f"over {len(errs)} (mode, guard) calls")
+
+
+def _diff(got, want):
+    """Max abs difference of a kernel's output (a tensor or a tuple of
+    them) and its plain version's; shapes must agree."""
+    import torch
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = 0
+    for g, w in zip(got, want, strict=True):
+        assert g.shape == w.shape, f"shape {tuple(g.shape)} != {tuple(w.shape)}"
+        if g.numel() and not torch.equal(g, w):
+            err = max(err, int((g.long() - w.long()).abs().max()))
+    return err
+
+
+def stage_checks(ck, case):
+    """stages / stages_flat against stages_plain on each engine's chain
+    (prefix, suffix and exact wid, fpset, wm, sog), sigma in {2, 4, 20,
+    256}, m in {8, 32}, long, ragged and short texts, bytes >= sigma
+    planted where the alphabet leaves room."""
+    import numpy as np
+    from tpu_smatcher_torch import make_engine
+    log("kernel vs plain (stages, stages_flat: every stage kind and mode, "
+        "guard on and off, tolerance 0):")
+    for sigma in (2, 4, 20, 256):
+        for m in (8, 32):
+            n = 4 * MiB + 77
+            text, pats = case(sigma, n, m, 2000, seed=sigma + m)
+            if sigma < 256:
+                at = np.random.default_rng(m).integers(0, n, 1 + n // 512)
+                text[at[::2]] = sigma
+                text[at[1::2]] = 255
+            names = ["ac", "sh", "wm"] + ([f"sog{m}"] if sigma <= 16 else [])
+            for name in names:
+                fp = make_engine(name, pats).fast_path
+                for nn in (n, 1001, m):
+                    chain, tables, _ = fp._stages(nn)
+                    ck.stages(f"{name} sigma={sigma} m={m} n={nn}",
+                              text[:nn].copy(), chain, tables, m, sigma)
+
+
 def kernel_checks():
     import numpy as np
     from tpu_smatcher_torch.core import datagen
@@ -416,6 +503,7 @@ def kernel_checks():
             ck.filters(f"short n={n}", text[:n].copy(), pats, stage_bits)
     ck.filters("match-dense", dense_text, dense_pats, 32768)
     assert crowded > 0, "no sub-block held more than 16 candidates"
+    stage_checks(ck, case)
     return ck
 
 
@@ -695,7 +783,135 @@ def positions_path(text, tdev, engines, codes, dense, sat, total):
     sat_gate = np.flatnonzero(datagen.match_starts(text[:N_GATE], s_pats))
     assert np.array_equal(spos, sat_gate), "saturated positions != oracle"
     assert sat_pieces > 1, "saturated positions did not split"
-    return ext
+    return ext, fpos
+
+
+def bench_pattern_sets(codes):
+    """bench.py's p=10k pattern sets of the tiers path, by m."""
+    from tpu_smatcher_torch.core.alphabet import Alphabet
+    from tpu_smatcher_torch.core.patterns import PatternSet
+    return {m: PatternSet(codes[name], Alphabet.dna())
+            for name, m, p, _ in TIERS if p == 10_000}
+
+
+def engines_path(text, tdev, codes, fp_pos, dense_pats, dense, total):
+    """The seven named engines through make_engine(..., device="cuda") on
+    bench.py's corpus and pattern sets: the eleven counts (count and
+    count_async, no retry) against the BENCH_r05.json anchors, the guarded
+    core, positions, scan_many and count_repeat_async, dense32 through the
+    wm engine, and each family's portable scan on the 4 MiB prefix.  Each
+    group is driven with the launch counters at 0, then checked."""
+    import numpy as np
+    import torch
+    from tpu_smatcher_torch import make_engine
+    from tpu_smatcher_torch.core import datagen
+    from tpu_smatcher_torch.ops import cuda_filter as cf
+
+    pats = bench_pattern_sets(codes)
+    anchors = {m: a for _, m, p, a in TIERS if p == 10_000}
+    t0 = time.perf_counter()
+    engines = {(name, m): make_engine(name, pats[m])
+               for name, m in ENGINE_RUNS}
+    log(f"engines: tables of {len(engines)} engines built in "
+        f"{time.perf_counter() - t0:.1f} s; stage 0: " + ", ".join(
+            f"{name} m={m} {e.fast_path.stage0}"
+            for (name, m), e in engines.items() if m != 16))
+    for group, want, other in ((("ac", "sh", "sbom"), "stages_flat", "stages"),
+                               (("wm", "sog8", "sog16", "sog32"), "stages",
+                                "stages_flat")):
+        reset_launches()
+        got = {}
+        for (name, m), eng in engines.items():
+            if name in group:
+                got[name, m] = (eng.count(tdev),
+                                eng.count_async(tdev).result())
+        read_launches(f"engines {'/'.join(group)}", (want, "words_view"),
+                      total)
+        assert cf.LAUNCHES[other] == 0, f"{group}: {other} launched"
+        for (name, m), (c, a) in got.items():
+            fp = engines[name, m].fast_path
+            log(f"engine {name} m={m}: count {c}, count_async {a} (anchor "
+                f"{anchors[m]}), chain {[k for k, _ in fp._stages(N_FULL)[0]]}")
+            assert c == a == anchors[m], f"{name} m={m}: {c} / {a}"
+            assert fp._fallback is None and not fp._use_fallback_async, \
+                f"{name} m={m}: retried"
+
+    anchor = anchors[8]
+    reset_launches()
+    ext = torch.cat([tdev, torch.full((7,), 4, dtype=torch.uint8,
+                                      device="cuda")])
+    core_c, core_o = (int(x) for x in engines["wm", 8].fast_path.core(ext))
+    read_launches("engines core", ("stages",), total)
+    assert cf.LAUNCHES["stages_flat"] == 0
+    log(f"engine wm m=8 core on the corpus + 7 pad bytes: {core_c} "
+        f"(overflow {core_o})")
+    assert (core_c, core_o) == (anchor, 0), f"core {core_c}"
+
+    reset_launches()
+    wm32, ac32 = engines["wm", 32], engines["ac", 32]
+    wpos, apos = wm32.positions(tdev), ac32.positions(tdev)
+    epos = engines["ac", 8].positions(tdev[:N_GATE])
+    rows = tdev.view(8, -1)
+    many = wm32.scan_many(list(rows))
+    rep3 = wm32.fast_path.count_repeat_async(tdev, 3).result()
+    read_launches("engines positions / batch", (
+        "stages", "stages_flat", "words_view", "exact_mask"), total)
+    gate = np.flatnonzero(datagen.match_starts(text[:N_GATE], pats[8]))
+    row_len = N_FULL // 8
+    row_want = [int(((fp_pos >= r * row_len)
+                     & (fp_pos <= (r + 1) * row_len - 32)).sum())
+                for r in range(8)]
+    log(f"engine positions: wm m=32 {len(wpos)}, ac m=32 {len(apos)} "
+        f"(make_fast {len(fp_pos)}); ac m=8 on the 4 MiB prefix {len(epos)} "
+        f"(oracle {len(gate)}); wm m=32 scan_many of 8 rows {many} (windows "
+        f"inside each row {row_want}); count_repeat_async x3 {rep3}")
+    assert np.array_equal(wpos, fp_pos) and np.array_equal(apos, fp_pos)
+    assert np.array_equal(epos, gate), "engine exact positions != oracle"
+    assert many == row_want, "engine scan_many"
+    assert rep3 == 3 * anchors[32], f"engine count_repeat_async {rep3}"
+
+    # dense32 through the wm engine: the first async scan overflows and
+    # retries exactly, then scans are pinned to the fallback FastScanner,
+    # whose ladder adapts within MAX_RETRIES
+    _, t2, d_truth = dense
+    reset_launches()
+    eng = make_engine("wm", dense_pats)
+    fp = eng.fast_path
+
+    def fb_retries():
+        return fp._fallback.fallback_scans if fp._fallback else 0
+
+    counts, after = [], []
+    for _ in range(MAX_RETRIES + 2):
+        before = (fp._use_fallback_async, fb_retries())
+        counts.append(eng.count_async(t2).result())
+        after.append(fb_retries())
+        if (fp._use_fallback_async, fb_retries()) == before:
+            break
+    steady = [eng.count_async(t2).result() for _ in range(3)]
+    read_launches("engines dense32", ("stages", "words_view"), total)
+    log(f"engine wm on dense32: counts {counts} then {steady} (truth "
+        f"{d_truth}), pinned to the fallback {fp._use_fallback_async}, the "
+        f"fallback's retries after each {after}, its dense pass "
+        f"{fp._fallback._match_dense if fp._fallback else None}")
+    assert counts + steady == [d_truth] * (len(counts) + 3), "dense32 wm"
+    assert fp._use_fallback_async, "dense32: the engine never overflowed"
+    assert 1 <= fb_retries() <= MAX_RETRIES, f"{fb_retries()} retries"
+    assert after[-1] == fb_retries(), "dense32: the fallback kept retrying"
+
+    reset_launches()
+    portable = {}
+    t0 = time.perf_counter()
+    for name in ("ac", "sh", "sbom", "wm", "sog8"):
+        portable[name] = make_engine(name, pats[8], fastpath=False).count(
+            tdev[:N_GATE])
+    secs = time.perf_counter() - t0
+    got = dict(cf.LAUNCHES)
+    log(f"engine portable scans (fastpath=False) on the 4 MiB prefix: "
+        f"{portable} (gate {len(gate)}), {secs:.1f} s, launches {got}")
+    assert set(portable.values()) == {len(gate)}, "portable scans"
+    assert not any(got.values()), "a portable scan launched a kernel"
+    return engines
 
 
 # ---------------------------------------------------------------------------
@@ -713,12 +929,16 @@ def path_times(card, label, eng, t, scan):
         f"({n / k_ms / 1e6:.2f} GB/s) on the kernels, {p_ms:.3f} ms/scan "
         f"({n / p_ms / 1e6:.2f} GB/s) on the plain versions")
     profile(card, label, lambda: scan(eng, t))
+    return k_ms
 
 
 def profile(card, label, fn, reps=3):
     """Per scan: wall time (host clock), device busy time (the sum of the
     device's kernel and copy events), the share of the wall the device
-    idles, and the three device events that take most."""
+    idles, and the three device events that take most, each with the
+    number of its events the profiler recorded over the reps (a kernel
+    the scan launches once that shows fewer than reps events lost some
+    of its records)."""
     import collections
     import torch
     from torch.autograd import DeviceType
@@ -732,12 +952,13 @@ def profile(card, label, fn, reps=3):
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / reps
-    dev = collections.Counter()
+    dev, events = collections.Counter(), collections.Counter()
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             dev[e.name] += e.time_range.elapsed_us() / 1e3 / reps
+            events[e.name] += 1
     busy = sum(dev.values())
-    top = ", ".join(f"{name[:48]} {ms:.3f} ms"
+    top = ", ".join(f"{name[:48]} {ms:.3f} ms ({events[name]} events)"
                     for name, ms in dev.most_common(3))
     log(f"[{card}] {label} profile: wall {wall:.3f} ms/scan, device busy "
         f"{busy:.3f} ms, idle share {1 - busy / wall:.3f}; top: {top}")
@@ -807,11 +1028,12 @@ def timings(card, ck, tdev, engines, slot_eng, dense, sat):
     def sync_scan(eng, t):
         return eng.count(t)
 
-    per_kernel = {}
+    per_kernel, tier_ms = {}, {}
     n = int(tdev.shape[0])
     for name, eng in engines:
         ft = eng.ft
-        path_times(card, f"tier {name}", eng, tdev, async_scan)
+        tier_ms[name] = path_times(card, f"tier {name}", eng, tdev,
+                                   async_scan)
         if ft.exact:
             per_kernel["exact_count"] = kernel_time(
                 card, ck, f"tier {name}", "exact_count",
@@ -880,6 +1102,86 @@ def timings(card, ck, tdev, engines, slot_eng, dense, sat):
                 lambda: cf.filter_mask_plain(t3, ft.bitmaps[:k], **args),
                 bound(n3 + stage_bytes(ft, k) + -(-(n3 - ft.m + 1) // cf.ROW)
                       * cf.ROW, fp_filter_ops(ft, n3, k)))
+    return per_kernel, tier_ms
+
+
+def record_stages(fn):
+    """The stages() calls fn makes, as (text, chain, tables, kwargs)."""
+    from tpu_smatcher_torch.ops import cuda_engines as ce
+    calls = []
+    real = ce.stages
+
+    def spy(text, chain, tables, **kw):
+        calls.append((text, chain, tables, kw))
+        return real(text, chain, tables, **kw)
+
+    ce.stages = spy
+    try:
+        fn()
+    finally:
+        ce.stages = real
+    return calls
+
+
+def stages_bound(text, chain, tables, kw, ft):
+    """bound() of one stage-chain call: the text read once, the tables and
+    the output; per start, each stage's rolling update (every start) and
+    test (the starts that reach it: the fraction passing the stages before
+    it, counted by the kernel on this text), the guard, the count's sum."""
+    from tpu_smatcher_torch.ops import cuda_engines as ce
+    n, m = int(text.shape[0]), kw["m"]
+    n_st = n - m + 1
+    nbytes = n + sum(t.numel() * 4 for t in tables) + {
+        "count": 4, "mask": -(-n_st // 128) * 128,
+        "slots": -(-n_st // 16384) * 17 * 4}[kw["mode"]]
+    ops, reach = 0.0, 1.0
+    for i, (kind, params) in enumerate(chain):
+        if i:
+            reach = int(ce.stages(text, chain[:i], tables[:i], m=m,
+                                  sigma=kw["sigma"], mode="count")) / n_st
+        if kind == "fpset":
+            roll, test = ROLLING_FP_OPS, STAGE_TEST_OPS * stage_tests(
+                ft, params[0])
+        else:
+            roll, test = STAGE_OPS[kind]
+        ops += roll + reach * test
+    ops += GUARD_START_OPS * kw.get("guard", False) + (kw["mode"] == "count")
+    return bound(nbytes, n_st * ops)
+
+
+def engines_timings(card, ck, tdev, engines, tier_ms):
+    """Per-scan medians of the eleven engines beside make_fast's at the same
+    m, a profile per stage kind, and the stage kernel on each engine's own
+    main-path inputs, held against its plain version, then timed against
+    it and its bound."""
+    from tpu_smatcher_torch.ops import cuda_engines as ce
+    n = int(tdev.shape[0])
+    fast = {m: tier_ms[name] for name, m, p, _ in TIERS if p == 10_000}
+    for (name, m), eng in engines.items():
+        ms = cuda_ms(lambda: eng.count_async(tdev).result())
+        log(f"[{card}] engine {name} m={m}: {ms:.3f} ms/scan "
+            f"({n / ms / 1e6:.2f} GB/s); make_fast at m={m} "
+            f"{fast[m]:.3f} ms/scan")
+    for key in PROFILED:
+        chain = [k for k, _ in engines[key].fast_path._stages(n)[0]]
+        profile(card, f"engine {key[0]} m={key[1]} ({' + '.join(chain)})",
+                lambda: engines[key].count_async(tdev).result())
+    log("stages / stages_flat: no single PyTorch call computes a stage "
+        "chain, so their library_ms is null")
+    per_kernel = {}
+    for key in PROFILED:
+        eng = engines[key]
+        for text, chain, tables, kw in record_stages(
+                lambda: eng.count_async(tdev).result()):
+            kname = "stages_flat" if kw.get("flat") else "stages"
+            res = kernel_time(
+                card, ck, f"engine {key[0]} m={key[1]} {kw['mode']} "
+                f"{'+'.join(k for k, _ in chain)}", kname,
+                lambda: ce.stages(text, chain, tables, **kw),
+                lambda: ce.stages_plain(text, chain, tables, **kw),
+                stages_bound(text, chain, tables, kw, eng.fast_path.ft))
+            if key == JSON_TIMED[kname]:
+                per_kernel[kname] = res
     return per_kernel
 
 
@@ -911,19 +1213,26 @@ def main() -> int:
     dense = dense32_path(text, tdev, pats, gate0, full0, total)
     sat = saturated_path(text, tdev, total)
     t1 = time.perf_counter()
-    ext = positions_path(text, tdev, engines, codes, dense, sat,
-                         total)
+    ext, fpos = positions_path(text, tdev, engines, codes, dense, sat,
+                               total)
+    t2 = time.perf_counter()
+    named = engines_path(text, tdev, codes, fpos, pats, dense, total)
     log(f"main paths done at {time.perf_counter() - t0:.1f} s (positions "
-        f"phase {time.perf_counter() - t1:.1f} s); launches {total}")
-    per_kernel = timings(card, ck, tdev, engines, slot_eng, dense, sat)
+        f"phase {t2 - t1:.1f} s, engines phase "
+        f"{time.perf_counter() - t2:.1f} s); launches {total}")
+    per_kernel, tier_ms = timings(card, ck, tdev, engines, slot_eng, dense,
+                                  sat)
     t1 = time.perf_counter()
     per_kernel.update(positions_timings(card, ck, tdev, ext, engines))
+    t2 = time.perf_counter()
+    per_kernel.update(engines_timings(card, ck, tdev, named, tier_ms))
     log(f"timings done at {time.perf_counter() - t0:.1f} s (positions "
-        f"phase {time.perf_counter() - t1:.1f} s)")
+        f"phase {t2 - t1:.1f} s, engines phase "
+        f"{time.perf_counter() - t2:.1f} s)")
 
     kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
                 "launches": total[k], "max_abs_err": ck.max_err[k],
-                **per_kernel[k]} for k, (_, src, rep) in KERNELS.items()]
+                **per_kernel[k]} for k, (_, _, src, rep) in KERNELS.items()]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

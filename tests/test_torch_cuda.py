@@ -1,6 +1,7 @@
 """PyTorch port on the card: each CUDA kernel equals its plain torch
-version bit for bit, and every route of the slice counts exactly through
-the kernels without waiting for the device.
+version bit for bit, every route of the fast path and every named engine
+counts exactly through the kernels, and the async paths do not wait for
+the device.
 
 These tests need a CUDA device and skip without one.  They import no JAX,
 so they run where only the port is installed:
@@ -12,8 +13,9 @@ import numpy as np
 import pytest
 import torch
 
-from tpu_smatcher_torch import make_fast
+from tpu_smatcher_torch import make_engine, make_fast
 from tpu_smatcher_torch.core import datagen
+from tpu_smatcher_torch.ops import cuda_engines as ce
 from tpu_smatcher_torch.ops import cuda_filter as cf
 from tpu_smatcher_torch.ops import fast as tfast
 
@@ -311,3 +313,129 @@ def test_repeat_and_stack_do_not_wait_for_the_device(cuda, kind):
         torch.cuda.set_sync_debug_mode("default")
     assert rep.result() == 3 * truth
     assert stack.result() == want
+
+
+#: (sigma, m) of the stage-chain kernel checks: with the engines below they
+#: run every stage kind (prefix, suffix and exact wid, fpset, wm, sog), wm
+#: and sog past their tables, both tiers
+STAGE_SIGMAS = [2, 4, 20, 256]
+
+
+def _engine_chains(sigma, m, n):
+    """(name, chain, tables) of each engine's fast path at (sigma, m) on the
+    card, and the text (bytes >= sigma planted where there is room)."""
+    text, pats = make_case(sigma, m, 200, n, seed=sigma + m)
+    text = text.copy()
+    if sigma < 256:
+        at = np.random.default_rng(m).integers(0, n, 400)
+        text[at[::2]] = sigma
+        text[at[1::2]] = 255
+    names = ["ac", "sh", "wm"] + ([f"sog{m}"] if m in (8, 16, 32) else [])
+    out = []
+    for name in names:
+        chain, tables, _ = make_engine(name, pats,
+                                       device="cuda").fast_path._stages(n)
+        out.append((name, chain, tables))
+    return text, out
+
+
+@pytest.mark.parametrize("m", [8, 32])
+@pytest.mark.parametrize("sigma", STAGE_SIGMAS)
+def test_stages_kernel_matches_plain(cuda, sigma, m):
+    """The stage-chain kernel equals stages_plain bit for bit in count,
+    mask and slots mode, guard on and off, on short, ragged and long
+    texts; launches count as stages, or stages_flat for a flat call."""
+    text, chains = _engine_chains(sigma, m, 300_007)
+    for name, chain, tables in chains:
+        flat_ok = all(k in ("wid", "fpset") for k, _ in chain)
+        for n in (m, 127, 2 * 16384 + 77, 300_007):
+            t = torch.from_numpy(text[:n].copy()).to(cuda)
+            for mode in ("count", "mask", "slots"):
+                for guard in (False, True):
+                    flat = flat_ok and not guard and mode != "slots"
+                    kw = dict(m=m, sigma=sigma, mode=mode, guard=guard)
+                    key = "stages_flat" if flat else "stages"
+                    before = cf.LAUNCHES[key]
+                    got = ce.stages(t, chain, tables, flat=flat, **kw)
+                    torch.cuda.synchronize()
+                    assert cf.LAUNCHES[key] == before + 1
+                    want = ce.stages_plain(t, chain, tables, **kw)
+                    got = got if isinstance(got, tuple) else (got,)
+                    want = want if isinstance(want, tuple) else (want,)
+                    for g, w in zip(got, want, strict=True):
+                        assert g.shape == w.shape and torch.equal(g, w), (
+                            name, n, mode, guard)
+
+
+#: (sigma, m, engines) of the engine checks on the card: both tiers, every
+#: stage 0
+CARD_ENGINE_CASES = [
+    (4, 8, ["ac", "sh", "sbom", "wm", "sog8"]),
+    (4, 32, ["ac", "sh", "sbom", "wm", "sog32"]),
+    (20, 16, ["ac", "wm", "sog16"]),
+]
+
+
+@pytest.mark.parametrize("sigma,m,engines", CARD_ENGINE_CASES)
+def test_engines_on_the_card_equal_cpu(cuda, sigma, m, engines):
+    """make_engine(device='cuda') equals device='cpu': count, count_async,
+    the guarded core, positions and the portable scan."""
+    text, pats = make_case(sigma, m, 300, 200_003, seed=3 * sigma + m)
+    truth = datagen.count_matches(text, pats)
+    t = torch.from_numpy(text).to(cuda)
+    ext = torch.cat([t, torch.full((m - 1,), sigma % 256, dtype=torch.uint8,
+                                   device=cuda)])
+    for name in engines:
+        eng = make_engine(name, pats, device=cuda)
+        ref = make_engine(name, pats, device="cpu")
+        before = cf.LAUNCHES["stages"] + cf.LAUNCHES["stages_flat"]
+        got = (eng.count(t), eng.count_async(t).result(),
+               [int(x) for x in eng.fast_path.core(ext)])
+        assert cf.LAUNCHES["stages"] + cf.LAUNCHES["stages_flat"] > before
+        want = (ref.count(text), ref.count_async(text).result(),
+                [int(x) for x in ref.fast_path.core(ext.cpu())])
+        assert got == want and got[0] == truth, name
+        np.testing.assert_array_equal(eng.positions(t), ref.positions(text))
+        portable = make_engine(name, pats, device=cuda, fastpath=False)
+        assert portable.count(t) == truth, name
+
+
+#: (engine, sigma, m, p, async mode): exact tier, and the fingerprint
+#: tier's slot and mask modes (few true matches, so neither overflows)
+SYNC_FREE_ENGINES = [("wm", 4, 8, 300, "count"), ("ac", 20, 32, 40, "slots"),
+                     ("sog16", 4, 16, 40, "slots"),
+                     ("wm", 4, 32, 30_000, "mask")]
+
+
+@pytest.mark.parametrize("name,sigma,m,p,mode", SYNC_FREE_ENGINES)
+def test_engine_count_async_does_not_wait_for_the_device(cuda, name, sigma,
+                                                         m, p, mode):
+    """An engine's count_async and count_repeat_async only enqueue."""
+    from tpu_smatcher_torch.core.alphabet import Alphabet
+    ab = Alphabet.of_size(sigma)
+    text = datagen.generate_text(200_003, ab, seed=5)
+    pats = datagen.generate_patterns(text, p, m, ab, frac_present=0.01,
+                                     seed=6)
+    eng = make_engine(name, pats, device=cuda)
+    t = torch.from_numpy(text).to(cuda)
+    truth = datagen.count_matches(text, pats)
+    modes = []
+    real = ce.stages
+
+    def spy(*a, **kw):
+        modes.append(kw["mode"])
+        return real(*a, **kw)
+
+    ce.stages = spy
+    try:
+        assert eng.count_async(t).result() == truth      # warm
+    finally:
+        ce.stages = real
+    assert modes == [mode] and not eng.fast_path._use_fallback_async
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fut = eng.count_async(t)
+        rep = eng.fast_path.count_repeat_async(t, 2)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert fut.result() == truth and rep.result() == 2 * truth

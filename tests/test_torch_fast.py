@@ -150,8 +150,9 @@ def test_count_async_and_device_checks():
 
 def test_port_imports_no_jax():
     """A fresh interpreter that imports the port, makes data with its own
-    generator, counts and enumerates positions and pattern ids on the CPU
-    holds no jax and no tpu_smatcher* module."""
+    generator, counts and enumerates positions and pattern ids on the CPU,
+    and counts through the seven named engines, with and without their
+    fast path, holds no jax and no tpu_smatcher* module."""
     code = (
         "import sys\n"
         "import tpu_smatcher_torch as t\n"
@@ -165,6 +166,13 @@ def test_port_imports_no_jax():
         "pos, ids = s.matches(text)\n"
         "assert len(s.positions(text)) == len(pos) == c\n"
         "assert s.count_per_pattern(text).sum() == c\n"
+        "for name in t.ENGINE_NAMES:\n"
+        "    m = int(name[3:]) if name.startswith('sog') else 16\n"
+        "    ps = datagen.generate_patterns(text, 20, m, ab, seed=3)\n"
+        "    want = datagen.count_matches(text, ps)\n"
+        "    for fastpath in (True, False):\n"
+        "        e = t.make_engine(name, ps, device='cpu', fastpath=fastpath)\n"
+        "        assert e.count(text) == want, (name, fastpath)\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
         "       or k == 'tpu_smatcher' or k.startswith('tpu_smatcher.')]\n"
         "assert not bad, bad\n"

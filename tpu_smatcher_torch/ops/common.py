@@ -1,11 +1,21 @@
-"""Small shared helpers and the file streams (port of
-tpu_smatcher/ops/common.py:125-202)."""
+"""Small shared helpers, the file streams, and the named engines' shared
+glue and portable-scan helpers (port of tpu_smatcher/ops/common.py).
+
+Padding convention of the portable scans: they right-pad text with the
+out-of-alphabet symbol min(sigma, 255) and mask windows past the text by
+position, so sigma = 256 (no pad symbol) is exact too.  Their tables are
+extended so the pad is safe (resets AC to the root, kills SH/SBOM walks,
+hashes WM to non-candidates); filter-engine candidates on pad windows are
+killed by exact verification.
+"""
 
 from __future__ import annotations
 
+import functools
 import os
 
 import numpy as np
+import torch
 
 
 def check_count32(n: int) -> None:
@@ -66,3 +76,214 @@ def stream_positions_file(positions_fn, m: int, path: str, *,
     if not out:
         return np.empty((0,), np.int64)
     return np.concatenate(out)
+
+
+# ---------------------------------------------------------------------------
+# the named engines: fast-path dispatch and the shared scanner surface
+# ---------------------------------------------------------------------------
+
+def active_fastpath(scanner):
+    """The engine's attached fast path (engines.attach_fastpath), or None.
+    It runs on the scanner's device, kernels on the card and their plain
+    versions on the CPU; patterns longer than the kernels take
+    (cuda_filter.MAX_KERNEL_M) fall back to the portable scan."""
+    from tpu_smatcher_torch.ops.cuda_filter import MAX_KERNEL_M
+    fp = scanner.fast_path
+    if fp is not None and fp.m <= MAX_KERNEL_M:
+        return fp
+    return None
+
+
+def fastpath_positions(scanner, text) -> np.ndarray:
+    """Match start positions through the engine's fast path."""
+    fp = active_fastpath(scanner)
+    if fp is None:
+        raise NotImplementedError(
+            "positions() requires the engine's fast path (make_engine with "
+            "fastpath=True and m <= MAX_KERNEL_M)")
+    return fp.positions(text)
+
+
+def _fallback_fast(scanner, what: str):
+    """The fast path's fallback FastScanner over the engine's own tables,
+    which attributes matches on the device; without a fast path there is
+    no device attribution, and the port has no host enumerator."""
+    fp = active_fastpath(scanner)
+    if fp is None:
+        raise NotImplementedError(
+            f"{what}() requires the engine's fast path (make_engine with "
+            "fastpath=True and m <= MAX_KERNEL_M)")
+    return fp._fallback_scanner()
+
+
+def scanner_matches(scanner, text):
+    """(positions, pattern_ids): every match start and the ORIGINAL id of
+    its pattern (smallest id on duplicates), attributed on the device by
+    the fast path's fallback FastScanner (same tables, same match set)."""
+    return _fallback_fast(scanner, "matches").matches(text)
+
+
+def scanner_count_per_pattern(scanner, text) -> np.ndarray:
+    """(p,) int64 match-start counts per original pattern id, summed on the
+    device by the fast path's fallback FastScanner; they sum to
+    count(text)."""
+    return _fallback_fast(scanner, "count_per_pattern").count_per_pattern(
+        text)
+
+
+def fastpath_count_async(scanner, text):
+    """count_async through the engine's fast path (its overflow retry is
+    the scanner's own count); without one, a resolved future around the
+    synchronous count."""
+    from tpu_smatcher_torch.ops.fast import ScanFuture
+    fp = active_fastpath(scanner)
+    if fp is not None:
+        return fp.count_async(text,
+                              retry=functools.partial(scanner.count, text))
+    zero = torch.zeros((), dtype=torch.int32)
+    return ScanFuture(zero + scanner.count(text), zero)
+
+
+def fastpath_scan_many(scanner, texts) -> list[int]:
+    """Counts of a batch of texts, every scan enqueued before any is read."""
+    return [f.result()
+            for f in [fastpath_count_async(scanner, t) for t in texts]]
+
+
+def fastpath_count_file(scanner, path: str, *, chunk: int = 1 << 28,
+                        depth: int = 3) -> int:
+    """stream_count_file through the engine's count_async."""
+    return stream_count_file(
+        functools.partial(fastpath_count_async, scanner), scanner.m, path,
+        chunk=chunk, depth=depth)
+
+
+def fastpath_positions_file(scanner, path: str, *,
+                            chunk: int = 1 << 28) -> np.ndarray:
+    """stream_positions_file through the engine's fast path."""
+    return stream_positions_file(
+        functools.partial(fastpath_positions, scanner), scanner.m, path,
+        chunk=chunk)
+
+
+class EngineScanner:
+    """The surface every named engine shares (JAX: _FilterScanner and
+    ACScanner): count through the attached fast path, else the capless
+    portable scan (_count_core); the rest through the fast path.
+    Subclasses set m, device and _count_core(text) -> 0-d int32."""
+
+    fast_path = None
+
+    def _as_text(self, text) -> torch.Tensor:
+        from tpu_smatcher_torch.ops.fast import device_text
+        return device_text(text, self.device)
+
+    def count(self, text) -> int:
+        """Through the fast path, which is total (an overflow retries
+        exactly, never raises), else the capless portable scan."""
+        fp = active_fastpath(self)
+        if fp is not None:
+            return fp.count(text)
+        return int(self._count_core(self._as_text(text)))
+
+    def positions(self, text) -> np.ndarray:
+        return fastpath_positions(self, text)
+
+    def count_async(self, text):
+        return fastpath_count_async(self, text)
+
+    def scan_many(self, texts) -> list[int]:
+        return fastpath_scan_many(self, texts)
+
+    def count_file(self, path: str, *, chunk: int = 1 << 28,
+                   depth: int = 3) -> int:
+        return fastpath_count_file(self, path, chunk=chunk, depth=depth)
+
+    def positions_file(self, path: str, *,
+                       chunk: int = 1 << 28) -> np.ndarray:
+        return fastpath_positions_file(self, path, chunk=chunk)
+
+    def matches(self, text):
+        return scanner_matches(self, text)
+
+    def count_per_pattern(self, text) -> np.ndarray:
+        return scanner_count_per_pattern(self, text)
+
+
+# ---------------------------------------------------------------------------
+# the portable scans' helpers
+# ---------------------------------------------------------------------------
+
+M32 = 0xFFFFFFFF
+
+
+def pad_col(table: np.ndarray, value: int) -> np.ndarray:
+    """Append one column (the pad symbol's) with a constant value."""
+    S = table.shape[0]
+    return np.concatenate([table, np.full((S, 1), value, table.dtype)], axis=1)
+
+
+def gather_clamped(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """table[idx] with idx clamped into the table, as a JAX gather clamps
+    (only out-of-alphabet text indexes past a table)."""
+    return table[idx.clamp(0, table.shape[0] - 1)]
+
+
+def word_streams(chunk: torch.Tensor, m: int, n_starts: int) -> torch.Tensor:
+    """(n_starts, W) int64: the little-endian packed words of each window
+    of chunk, as uint32 values (word w packs bytes 4w .. 4w+nb, nb =
+    min(4, m - 4w), zero padded, bit-identical to lookup.pack_rows)."""
+    t = chunk.to(torch.int64)
+    streams = []
+    for w in range(cdiv(m, 4)):
+        acc = torch.zeros(n_starts, dtype=torch.int64, device=chunk.device)
+        for k in range(min(4, m - 4 * w)):
+            off = 4 * w + k
+            acc |= t[off:off + n_starts] << (8 * k)
+        streams.append(acc)
+    return torch.stack(streams, dim=1)
+
+
+def verify_starts(chunk: torch.Tensor, cand: torch.Tensor, *,
+                  packed: torch.Tensor, bucket_ids: torch.Tensor, lmax: int,
+                  sigma: int, m: int) -> torch.Tensor:
+    """(n_starts,) bool: candidate starts (cand, over starts [0, n_starts)
+    of chunk) whose window equals at least one pattern.  The window's last
+    3-gram keys a bucket of verify.VerifyTables (bucket_ids flat, lmax per
+    bucket); each bucket slot is compared word for word."""
+    n_starts = cand.shape[0]
+    win = word_streams(chunk, m, n_starts)
+    t = chunk.to(torch.int64)
+    key = (t[m - 3:m - 3 + n_starts] + t[m - 2:m - 2 + n_starts] * sigma
+           + t[m - 1:m - 1 + n_starts] * (sigma * sigma))
+    key = key.clamp(max=bucket_ids.shape[0] // lmax - 1)
+    packed64 = packed.to(torch.int64) & M32
+    matched = torch.zeros_like(cand)
+    for slot in range(lmax):
+        pid = bucket_ids[key * lmax + slot].to(torch.int64)
+        live = cand & (pid >= 0) & ~matched
+        eq = (packed64[pid.clamp(min=0)] == win).all(1)
+        matched |= live & eq
+    return matched
+
+
+def tiled_count(per_tile, text: torch.Tensor, *, tile: int, m: int,
+                sigma: int) -> torch.Tensor:
+    """Sum of per_tile(chunk, valid) over tiles of `tile` owned starts, as
+    a 0-d int32 tensor on text's device (no host sync).  chunk is (tile +
+    m - 1,) uint8 of the text right-padded with min(sigma, 255); valid is
+    (tile,) bool, False at starts past the text's last window (positional
+    masking, so sigma = 256, whose pad 255 is a real byte, is exact)."""
+    n = int(text.shape[0])
+    dev = text.device
+    n_valid = max(n - m + 1, 0)
+    num_tiles = max(1, cdiv(n_valid, tile))
+    padded = torch.full((num_tiles * tile + m - 1,), min(sigma, 255),
+                        dtype=torch.uint8, device=dev)
+    padded[:n] = text
+    iota = torch.arange(tile, device=dev)
+    total = torch.zeros((), dtype=torch.int64, device=dev)
+    for i in range(num_tiles):
+        chunk = padded[i * tile:(i + 1) * tile + m - 1]
+        total += per_tile(chunk, iota < n_valid - i * tile)
+    return total.to(torch.int32)

@@ -15,7 +15,8 @@ tpu_smatcher/ops/pallas_filter.py:
 A wrapper given a CUDA tensor launches its kernel (or raises); given a CPU
 tensor it runs the plain version, which has the same signature and the same
 outputs bit for bit.  LAUNCHES counts kernel launches per TPU kernel
-replaced (the guarded exact count apart from the unguarded one), so a run
+replaced (the guarded exact count apart from the unguarded one; the named
+engines' stage chain, ops/cuda_engines.stages, counts here too), so a run
 can show that its main path went through the kernels.
 """
 
@@ -46,7 +47,7 @@ PLAIN_PIECE = 1 << 24
 #: kernel launches per wrapper (plain-version calls are not counted)
 LAUNCHES = {"exact_count": 0, "exact_count_guard": 0, "exact_mask": 0,
             "cascade": 0, "filter_mask": 0, "filter_slots": 0,
-            "words_view": 0}
+            "words_view": 0, "stages": 0, "stages_flat": 0}
 
 
 def _check(text: torch.Tensor, tables: torch.Tensor, tables_ndim: int):
@@ -372,25 +373,31 @@ def filter_slots_plain(text: torch.Tensor, bitmaps: torch.Tensor, *, m: int,
     BLOCK_SLOTS into place."""
     n_starts = int(text.shape[0]) - m + 1
     n_sub = cdiv(n_starts, SUB_BLOCK)
-    dev = text.device
-    pos = torch.empty((n_sub, BLOCK_SLOTS), dtype=torch.int32, device=dev)
-    counts = torch.empty((n_sub,), dtype=torch.int32, device=dev)
-    for s in range(0, n_sub * SUB_BLOCK, PLAIN_PIECE):
-        width = min(PLAIN_PIECE, n_sub * SUB_BLOCK - s)
-        cand = _candidates(text, bitmaps, cd, s, n_starts, width,
-                           m).view(-1, SUB_BLOCK)
-        rank = torch.cumsum(cand, dim=1) - 1
-        keep = cand & (rank < BLOCK_SLOTS)
-        col = torch.where(keep, rank, BLOCK_SLOTS)   # column 16 = trash
-        val = torch.where(keep, torch.arange(s, s + width, device=dev).view(
-            -1, SUB_BLOCK), -1)
-        out = torch.full((cand.shape[0], BLOCK_SLOTS + 1), -1,
-                         dtype=torch.int64, device=dev)
-        out.scatter_(1, col, val)
-        b = s // SUB_BLOCK
-        pos[b:b + cand.shape[0]] = out[:, :BLOCK_SLOTS]
-        counts[b:b + cand.shape[0]] = cand.sum(1)
-    return pos, counts
+    pieces = [sub_block_slots(_candidates(text, bitmaps, cd, s, n_starts,
+                                          min(PLAIN_PIECE,
+                                              n_sub * SUB_BLOCK - s), m)
+                              .view(-1, SUB_BLOCK), s)
+              for s in range(0, n_sub * SUB_BLOCK, PLAIN_PIECE)]
+    return (torch.cat([p for p, _ in pieces]),
+            torch.cat([c for _, c in pieces]))
+
+
+def sub_block_slots(cand: torch.Tensor, s: int):
+    """The slots layout of a (rows, SUB_BLOCK) candidate matrix whose first
+    start is s: (pos (rows, 16) int32, the first BLOCK_SLOTS candidates of
+    each sub-block by position, -1 where fewer; counts (rows,) int32, the
+    true count).  Ranks each sub-block's candidates with a cumsum and
+    scatters the first BLOCK_SLOTS into place."""
+    rank = torch.cumsum(cand, dim=1) - 1
+    keep = cand & (rank < BLOCK_SLOTS)
+    col = torch.where(keep, rank, BLOCK_SLOTS)       # column 16 = trash
+    val = torch.where(keep, torch.arange(
+        s, s + cand.numel(), device=cand.device).view(-1, SUB_BLOCK), -1)
+    out = torch.full((cand.shape[0], BLOCK_SLOTS + 1), -1, dtype=torch.int64,
+                     device=cand.device)
+    out.scatter_(1, col, val)
+    return (out[:, :BLOCK_SLOTS].to(torch.int32),
+            cand.sum(1).to(torch.int32))
 
 
 # ---------------------------------------------------------------------------

@@ -718,6 +718,34 @@ def _host_tensor(a) -> torch.Tensor:
     return torch.from_numpy(a if a.flags.writeable else a.copy())
 
 
+def device_text(text, device: torch.device, ndim: int = 1) -> torch.Tensor:
+    """text (or, ndim=2, a batch of texts) as a contiguous uint8 tensor on
+    `device`: a host array is copied there, a tensor elsewhere raises."""
+    if isinstance(text, torch.Tensor):
+        if text.device != device:
+            raise ValueError(f"text on {text.device}, scanner on {device}")
+        t = text
+    else:
+        t = _host_tensor(text).to(device)
+    if t.dtype != torch.uint8 or t.dim() != ndim:
+        raise TypeError(f"text must be {ndim}-D uint8, got {t.dtype} "
+                        f"{tuple(t.shape)}")
+    check_count32(int(t.numel()))
+    return t.contiguous()
+
+
+def enqueue_sum(scan, texts, device: torch.device):
+    """(summed count, ORed overflow) of scan(t) -> (count, overflow) over
+    `texts`, on the device, no host sync."""
+    count = torch.zeros((), dtype=torch.int64, device=device)
+    over = torch.zeros((), dtype=torch.int32, device=device)
+    for t in texts:
+        c, o = scan(t)
+        count += c
+        over |= o.to(torch.int32)
+    return count, over
+
+
 class ScanFuture:
     """Handle for an in-flight device scan: the (count, overflow) pair stays
     on the device until result().  On overflow result() runs the retry,
@@ -765,21 +793,7 @@ class FastScanner:
         self._match_dense = False
 
     def _as_text(self, text, ndim: int = 1) -> torch.Tensor:
-        """text (or, ndim=2, a batch of texts) as a contiguous uint8
-        tensor on the scanner's device; a host array is copied there, a
-        tensor elsewhere raises."""
-        if isinstance(text, torch.Tensor):
-            if text.device != self.device:
-                raise ValueError(f"text on {text.device}, scanner on "
-                                 f"{self.device}")
-            t = text
-        else:
-            t = _host_tensor(text).to(self.device)
-        if t.dtype != torch.uint8 or t.dim() != ndim:
-            raise TypeError(f"text must be {ndim}-D uint8, got {t.dtype} "
-                            f"{tuple(t.shape)}")
-        check_count32(int(t.numel()))
-        return t.contiguous()
+        return device_text(text, self.device, ndim)
 
     def _kernels(self) -> bool:
         return self.m <= cuda_filter.MAX_KERNEL_M
@@ -1063,16 +1077,8 @@ class FastScanner:
                           retry=lambda: sum(self.scan_many(list(b))))
 
     def _enqueue_sum(self, texts):
-        """(summed count, ORed overflow) of the async scans of `texts`, on
-        the device, no host sync."""
-        scan = self._async_scan()
-        count = torch.zeros((), dtype=torch.int64, device=self.device)
-        over = torch.zeros((), dtype=torch.int32, device=self.device)
-        for t in texts:
-            c, o = scan(t)
-            count += c
-            over |= o.to(torch.int32)
-        return count, over
+        """enqueue_sum of the scans count_async runs now."""
+        return enqueue_sum(self._async_scan(), texts, self.device)
 
     def count_stack(self, batch) -> int:
         """The sum of count() over the batch's rows (count_stack_async)."""
