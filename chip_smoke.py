@@ -7,7 +7,11 @@
 2. builds the CUDA kernels from tpu_smatcher_torch/csrc with nvcc;
 3. holds each kernel against its plain torch version on the card, exactly
    (integers: tolerance 0), over texts of up to 16 MiB, short and ragged
-   texts, long patterns, narrow and wide stages and match-dense texts;
+   texts, long patterns, narrow and wide stages and match-dense texts; the
+   unguarded exact count and the cascade also on start counts around
+   their runs and tiles, at m=1 (and 4097 for the cascade), sigma=256, a
+   text at an odd address (exact count), and 131,072-bit stages with phase
+   1 in shared memory and past it, rows overflowing (cascade);
 4. drives the main paths through make_fast / FastScanner, each with the
    launch counters set to 0 just before it and read just after:
    - bench.py's five tiers on its 256 MiB DNA corpus (seed 7): each count
@@ -67,6 +71,11 @@ PAT_SEED = 8 + M_CELL
 #: dense32's plants of pattern 0: every 256 bytes over [1 MiB, 3 MiB)
 PLANTS = range(MiB, 3 * MiB, 256)
 MAX_RETRIES = 6
+#: the unguarded exact count's run (consecutive starts per thread) and tile
+#: (starts per block iteration), and the cascade's: the kernel checks take
+#: start counts around both
+EXACT_RUN, EXACT_TILE = 32, 8192
+CASCADE_RUN, CASCADE_TILE = 16, 4096
 
 #: the ported kernels, by their cuda_filter.LAUNCHES name: (the wrapper's
 #: module, the wrapper, source, the TPU kernel it replaces)
@@ -111,10 +120,11 @@ JSON_TIMED = {"stages_flat": ("ac", 8), "stages": ("wm", 8)}
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 33.5e12
 #: The bounds charge each function the operations it needs, not what the
-#: kernels do today.  The fingerprint multipliers are odd, so invertible mod
+#: kernels do.  The fingerprint multipliers are odd, so invertible mod
 #: 2^16, and a fingerprint rolls from one start to the next in O(1):
 #: fp(i) = fp(i+1) * M + t[i] - t[i+m] * M^m, two multiply-adds for each of
-#: the three (the kernels still run Horner's rule, 3m multiply-adds).
+#: the three (the cascade rolls; filter.cu and stages.cu still run Horner's
+#: rule, 3m multiply-adds).
 ROLLING_FP_OPS = 3 * 2 * 2
 #: one stage test: key = f0 + C*f1 + D*f2 (2 multiply-adds), the mask, the
 #: word index and the bit test
@@ -209,6 +219,53 @@ def read_launches(path, kernels, total):
         total[k] += v
 
 
+@contextlib.contextmanager
+def sized_launches():
+    """Every kernel wrapper behind a spy that adds the length of the text
+    of each launch it makes to the yielded dict, under the LAUNCHES name
+    the launch counted, so launches can be weighted by the size they ran
+    at."""
+    import importlib
+    from tpu_smatcher_torch.ops import cuda_filter as cf
+    scanned = {k: 0 for k in cf.LAUNCHES}
+    saved = [(importlib.import_module(mod), w) for mod, w in WRAPPERS]
+    saved = [(mod, w, getattr(mod, w)) for mod, w in saved]
+
+    def spy(real):
+        def call(text, *args, **kw):
+            before = dict(cf.LAUNCHES)
+            out = real(text, *args, **kw)
+            for k, v in cf.LAUNCHES.items():
+                scanned[k] += (v - before[k]) * int(text.numel())
+            return out
+        return call
+
+    try:
+        for mod, w, fn in saved:
+            setattr(mod, w, spy(fn))
+        yield scanned
+    finally:
+        for mod, w, fn in saved:
+            setattr(mod, w, fn)
+
+
+def size_weighted(total, scanned, per_kernel):
+    """Each kernel's launches on the main paths weighted by the size they
+    ran at: the MiB they scanned over 256 MiB, times the kernel's ms at 256
+    MiB (linear in the size; a launch's fixed cost of a few microseconds
+    is not in it).  Logs the kernels by that estimate and its excess over
+    the bound, largest first."""
+    rows = []
+    for k, n in total.items():
+        scale = scanned[k] / (256 * MiB)
+        rows.append((scale * (per_kernel[k]["ms"] - per_kernel[k]["bound_ms"]),
+                     k, n, scanned[k] / MiB, scale * per_kernel[k]["ms"]))
+    log("size-weighted launches (kernel: launches, MiB scanned, est. ms = "
+        "MiB / 256 x ms at 256 MiB, est. ms over the bound):")
+    for over, k, n, mib, ms in sorted(rows, reverse=True):
+        log(f"  {k}: {n}, {mib:.1f} MiB, {ms:.3f} ms, {over:.3f} ms")
+
+
 # ---------------------------------------------------------------------------
 # bounds: the least time the card could take for a kernel's work
 # ---------------------------------------------------------------------------
@@ -267,17 +324,19 @@ class Checks:
         log(f"  {name} {label}: kernel vs plain max_abs_err {err}")
         self._err(name, err, label)
 
-    def exact(self, label, text, pats):
+    def exact(self, label, text, pats, offset=0):
+        """The unguarded exact count against its plain version on
+        text[offset:] (an odd offset is an unaligned address)."""
         import torch
         from tpu_smatcher_torch.ops import cuda_filter as cf
         from tpu_smatcher_torch.ops.fast import build_fast
         ft = build_fast(pats.codes, pats.sigma, device="cuda")
-        t = torch.from_numpy(text).cuda()
+        t = torch.from_numpy(text).cuda()[offset:]
         k = int(cf.exact_count(t, ft.bitmaps[0], m=ft.m, sigma=ft.sigma))
         torch.cuda.synchronize()
         p = int(cf.exact_count_plain(t, ft.bitmaps[0], m=ft.m,
                                      sigma=ft.sigma))
-        log(f"  exact_count {label}: n={len(text)} m={ft.m} "
+        log(f"  exact_count {label}: n={int(t.shape[0])} m={ft.m} "
             f"sigma={ft.sigma} kernel={k} plain={p}")
         self._err("exact_count", abs(k - p), label)
 
@@ -324,6 +383,22 @@ class Checks:
             f"kt={kt} survivors={int((ks >= 0).sum())} ovf={int(ko)}")
         self._err("cascade", err, label)
         assert want_ovf is None or int(ko) == want_ovf, label
+
+    def cascade_stages(self, label, text, bitmaps, m, k1):
+        """The cascade on given stage bitmaps ((kt, words) int32 numpy) and
+        the first kt (C, D) pairs, against its plain version."""
+        import torch
+        from tpu_smatcher_torch.ops import cuda_filter as cf
+        from tpu_smatcher_torch.ops.fast import STAGE_CD
+        t = torch.from_numpy(text).cuda()
+        bm = torch.from_numpy(bitmaps).cuda()
+        kt = int(bm.shape[0])
+        args = dict(m=m, k1=k1, cd=STAGE_CD[:kt])
+        got = cf.cascade(t, bm, **args)
+        self.same("cascade", got, cf.cascade_plain(t, bm, **args),
+                  f"{label}: n={len(text)} m={m} k1={k1} kt={kt} "
+                  f"stage_bits={bm.shape[1] * 32} survivors "
+                  f"{int((got[0] >= 0).sum())} ovf {int(got[1])}")
 
     def filters(self, label, text, pats, stage_bits):
         """filter_mask and filter_slots at k = 1 and 3, and words_view on
@@ -433,6 +508,20 @@ def stage_checks(ck, case):
                               text[:nn].copy(), chain, tables, m, sigma)
 
 
+def edge_starts(run, tile):
+    """Start counts around a kernel's run and tile."""
+    return sorted({run - 1, run, run + 1, tile - 1, tile, tile + 1,
+                   2 * tile + run + 1})
+
+
+def random_stages(k, stage_bits, fill, seed):
+    """(k, stage_bits/32) int32 stage bitmaps, each bit set with
+    probability fill."""
+    import numpy as np
+    bits = np.random.default_rng(seed).random((k, stage_bits)) < fill
+    return np.packbits(bits, axis=1, bitorder="little").view("<i4")
+
+
 def kernel_checks():
     import numpy as np
     from tpu_smatcher_torch.core import datagen
@@ -455,6 +544,15 @@ def kernel_checks():
     zeros = np.zeros(MiB + 3, np.uint8)                   # every start hits
     ck.exact("all-match", zeros,
              PatternSet(np.zeros((1, 8), np.uint8), Alphabet.dna()))
+    # start counts around a run and a tile, m=1, sigma=256, and a text at
+    # an odd address (staged without cp.async)
+    for sigma, m, p in ((4, 8, 200), (4, 1, 2), (256, 2, 200)):
+        text, pats = case(sigma, 3 * EXACT_TILE, m, p, seed=sigma + m)
+        for s in edge_starts(EXACT_RUN, EXACT_TILE):
+            ck.exact(f"sigma={sigma} {s} starts", text[:m - 1 + s].copy(),
+                     pats)
+        text, pats = case(sigma, 4 * MiB + 5, m, p, seed=sigma + m)
+        ck.exact(f"sigma={sigma} odd address", text, pats, offset=1)
 
     log("kernel vs plain (exact_mask, guarded exact_count, tolerance 0):")
     for sigma, m in ((2, 16), (4, 8), (20, 3), (256, 2)):
@@ -489,6 +587,20 @@ def kernel_checks():
     dense_pats = PatternSet(codes, pats.alphabet)
     ck.cascade("match-dense", dense_text, dense_pats, stage_bits=32768,
                want_ovf=1)
+    text, pats = case(4, 3 * CASCADE_TILE + 64, 32, 3000, seed=11)
+    for s in edge_starts(CASCADE_RUN, CASCADE_TILE):     # run and tile edges
+        ck.cascade(f"{s} starts", text[:31 + s].copy(), pats)
+    text, pats = case(256, MiB + 3, 16, 10_000, seed=12)
+    ck.cascade("sigma=256", text, pats)
+    # 131,072-bit stages (p=100k's width) with phase 1 in shared memory (k1
+    # = 6: 96 KB, 12: 192 KB) or past it (14: 224 KB), m = 1 and 4097,
+    # bytes up to 255; bits set with probability 0.8, so rows overflow
+    rng = np.random.default_rng(13)
+    for k1 in (6, 12, 14):
+        stages = random_stages(k1 + 2, 131072, 0.8, seed=k1)
+        for m in (1, 32, 4097):
+            text = rng.integers(0, 256, m - 1 + 4 * MiB + 77).astype(np.uint8)
+            ck.cascade_stages("random stages", text, stages, m, k1)
 
     log("kernel vs plain (filter_mask, filter_slots, words_view, "
         "tolerance 0):")
@@ -1049,15 +1161,16 @@ def timings(card, ck, tdev, engines, slot_eng, dense, sat):
         kern = functools.partial(cf.cascade, tdev, ft.bitmaps[:kt], **args)
         plain = functools.partial(cf.cascade_plain, tdev, ft.bitmaps[:kt],
                                   **args)
+        rows = -(-(n - ft.m + 1) // cf.ROW)
+        bnd = bound(n + stage_bytes(ft, kt) + rows * cf.ROW_SLOTS * 4 + 4,
+                    fp_filter_ops(ft, n, k1))
         if name != "fp":            # every tier's shapes held, one timed
             ck.same("cascade", kern(), plain(),
                     f"tier {name} k1={k1} kt={kt} (main-path inputs)")
+            log(f"tier {name}: cascade bound {bnd[0]:.4f} ms by {bnd[1]}")
             continue
-        rows = -(-(n - ft.m + 1) // cf.ROW)
         per_kernel["cascade"] = kernel_time(
-            card, ck, f"tier {name}", "cascade", kern, plain,
-            bound(n + stage_bytes(ft, kt) + rows * cf.ROW_SLOTS * 4 + 4,
-                  fp_filter_ops(ft, n, k1)))
+            card, ck, f"tier {name}", "cascade", kern, plain, bnd)
 
     ft = slot_eng.ft
     path_times(card, "slot32", slot_eng, tdev, async_scan)
@@ -1208,15 +1321,16 @@ def main() -> int:
     log(f"corpus: {N_FULL} bytes DNA seed 7 "
         f"({time.perf_counter() - t0:.1f} s)")
     total = {k: 0 for k in KERNELS}
-    engines, codes = tiers_path(text, tdev, total)
-    pats, slot_eng, gate0, full0 = slot32_path(text, tdev, total)
-    dense = dense32_path(text, tdev, pats, gate0, full0, total)
-    sat = saturated_path(text, tdev, total)
-    t1 = time.perf_counter()
-    ext, fpos = positions_path(text, tdev, engines, codes, dense, sat,
-                               total)
-    t2 = time.perf_counter()
-    named = engines_path(text, tdev, codes, fpos, pats, dense, total)
+    with sized_launches() as scanned:
+        engines, codes = tiers_path(text, tdev, total)
+        pats, slot_eng, gate0, full0 = slot32_path(text, tdev, total)
+        dense = dense32_path(text, tdev, pats, gate0, full0, total)
+        sat = saturated_path(text, tdev, total)
+        t1 = time.perf_counter()
+        ext, fpos = positions_path(text, tdev, engines, codes, dense, sat,
+                                   total)
+        t2 = time.perf_counter()
+        named = engines_path(text, tdev, codes, fpos, pats, dense, total)
     log(f"main paths done at {time.perf_counter() - t0:.1f} s (positions "
         f"phase {t2 - t1:.1f} s, engines phase "
         f"{time.perf_counter() - t2:.1f} s); launches {total}")
@@ -1229,6 +1343,8 @@ def main() -> int:
     log(f"timings done at {time.perf_counter() - t0:.1f} s (positions "
         f"phase {t2 - t1:.1f} s, engines phase "
         f"{time.perf_counter() - t2:.1f} s)")
+
+    size_weighted(total, scanned, per_kernel)
 
     kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
                 "launches": total[k], "max_abs_err": ck.max_err[k],

@@ -19,7 +19,8 @@ from tpu_smatcher_torch.ops import cuda_engines as ce
 from tpu_smatcher_torch.ops import cuda_filter as cf
 from tpu_smatcher_torch.ops import fast as tfast
 
-from torch_cases import CASES, dense_case, make_case, wide_case
+from torch_cases import (CASES, dense_case, edge_starts, make_case,
+                         random_stages, wide_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -31,11 +32,24 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("sigma,m,p", [(2, 8, 16), (2, 16, 16), (4, 8, 200)])
+#: the unguarded exact count's run (starts per thread) and tile (starts per
+#: block iteration); the cascade's
+EXACT_RUN, EXACT_TILE = 32, 8192
+CASCADE_RUN, CASCADE_TILE = 16, 4096
+
+
+@pytest.mark.parametrize("sigma,m,p", [(2, 8, 16), (2, 16, 16), (4, 8, 200),
+                                       (4, 1, 2), (256, 2, 200)])
 def test_exact_kernel_matches_plain(cuda, sigma, m, p):
+    """The unguarded exact count equals its plain version and the ground
+    truth on short, ragged and long texts, on start counts around a run
+    and a tile, at m=1 and sigma=256, and on a text at an odd address
+    (staged without cp.async)."""
     text, pats = make_case(sigma, m, p, 300_007, seed=3 * sigma + m)
     bm = tfast.build_fast(pats.codes, sigma, device=cuda).bitmaps[0]
-    for n in (m, 127, 300_007):
+    ns = [m, 127, 300_007] + [m - 1 + s
+                              for s in edge_starts(EXACT_RUN, EXACT_TILE)]
+    for n in ns:
         t = torch.from_numpy(text[:n].copy()).to(cuda)
         before = cf.LAUNCHES["exact_count"]
         got = cf.exact_count(t, bm, m=m, sigma=sigma)
@@ -43,6 +57,11 @@ def test_exact_kernel_matches_plain(cuda, sigma, m, p):
         assert cf.LAUNCHES["exact_count"] == before + 1
         assert int(got) == int(cf.exact_count_plain(t, bm, m=m, sigma=sigma))
         assert int(got) == datagen.count_matches(text[:n], pats)
+    t = torch.from_numpy(text).to(cuda)[1:]
+    assert t.data_ptr() % 16
+    assert int(cf.exact_count(t, bm, m=m, sigma=sigma)) == \
+        int(cf.exact_count_plain(t, bm, m=m, sigma=sigma)) == \
+        datagen.count_matches(text[1:], pats)
 
 
 def _check_cascade(cuda, text, pats, stage_bits=None):
@@ -66,10 +85,58 @@ def _check_cascade(cuda, text, pats, stage_bits=None):
 
 
 @pytest.mark.parametrize("m,sigma", [(8, 20), (16, 4), (32, 4), (129, 4),
-                                     (513, 4)])
+                                     (513, 4), (16, 256)])
 def test_cascade_kernel_matches_plain(cuda, m, sigma):
+    """The cascade equals its plain version on a long text and on start
+    counts around a run and a tile."""
     text, pats = make_case(sigma, m, 3000, 200_003, seed=m)
     assert _check_cascade(cuda, text, pats) == 0
+    for s in edge_starts(CASCADE_RUN, CASCADE_TILE):
+        _check_cascade(cuda, text[:m - 1 + s].copy(), pats)
+
+
+@pytest.mark.parametrize("m", [1, 32, 4097])
+@pytest.mark.parametrize("k1", [6, 12, 14])
+def test_cascade_kernel_on_wide_stages_matches_plain(cuda, m, k1):
+    """131,072-bit stages, p=100k's width: phase 1's k1 stages in shared
+    memory at k1=6 (96 KB) and k1=12 (192 KB), through the read-only cache
+    at k1=14 (224 KB does not fit beside the text tiles); bytes up to 255;
+    m=1 and m=4097.  Bits set with probability 0.8, so rows overflow at
+    k1=6."""
+    kt = k1 + 2
+    bitmaps = torch.from_numpy(random_stages(kt, 131072, 0.8, seed=k1)).to(
+        cuda)
+    rng = np.random.default_rng(m)
+    text = rng.integers(0, 256, m - 1 + 2 * CASCADE_TILE + 77).astype(
+        np.uint8)
+    t = torch.from_numpy(text).to(cuda)
+    args = dict(m=m, k1=k1, cd=tfast.STAGE_CD[:kt])
+    before = cf.LAUNCHES["cascade"]
+    slots, ovf = cf.cascade(t, bitmaps, **args)
+    torch.cuda.synchronize()
+    assert cf.LAUNCHES["cascade"] == before + 1
+    ps, po = cf.cascade_plain(t, bitmaps, **args)
+    assert torch.equal(slots, ps) and int(ovf) == int(po)
+    assert k1 != 6 or int(ovf) == 1
+
+
+def test_cascade_kernel_after_a_smaller_large_launch(cuda):
+    """Three launches above the default 48 KB of shared memory: 192 KB of
+    phase-1 stages, then 48 KB, then 192 KB again.  The second lowers the
+    kernel's shared-memory limit, so the third must raise it again even
+    though its grid size is known from the first."""
+    rng = np.random.default_rng(3)
+    t = torch.from_numpy(rng.integers(0, 4, 3 * CASCADE_TILE).astype(
+        np.uint8)).to(cuda)
+    wide = torch.from_numpy(random_stages(14, 131072, 0.8, seed=1)).to(cuda)
+    mid = torch.from_numpy(random_stages(13, 32768, 0.8, seed=2)).to(cuda)
+    for bitmaps, k1 in ((wide, 12), (mid, 12), (wide, 12)):
+        kt = int(bitmaps.shape[0])
+        args = dict(m=32, k1=k1, cd=tfast.STAGE_CD[:kt])
+        slots, ovf = cf.cascade(t, bitmaps, **args)
+        torch.cuda.synchronize()
+        ps, po = cf.cascade_plain(t, bitmaps, **args)
+        assert torch.equal(slots, ps) and int(ovf) == int(po)
 
 
 def test_cascade_kernel_overflow_matches_plain(cuda):

@@ -8,14 +8,18 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from tpu_smatcher.ops import fast as jfast
+from tpu_smatcher.ops import keys as jkeys
 from tpu_smatcher.ops import pallas_filter as pf
 
 from tpu_smatcher_torch.core import datagen
 from tpu_smatcher_torch.ops import cuda_filter as cf
 from tpu_smatcher_torch.ops import fast as tfast
+from tpu_smatcher_torch.ops import keys as tkeys
+from tpu_smatcher_torch.ops.common import bits_per_char
 
 from torch_cases import dense_case, make_case, wide_case
 
@@ -103,6 +107,98 @@ def test_cascade_plain_matches_pallas(jax_cascade, kind, want_ovf):
     s2, o2 = cf.cascade(t, tft.bitmaps[:kt], m=pats.m, k1=k1, cd=tft.cd(kt))
     assert torch.equal(s2, slots) and int(o2) == int(ovf)
     assert cf.LAUNCHES == before
+
+
+MASK32 = np.uint64(0xFFFFFFFF)
+
+
+def _run_starts(n_starts, run):
+    """The first start of each run of `run` consecutive starts."""
+    return np.arange(0, n_starts, run)
+
+
+def _rolling_fps(text, m, mult, run):
+    """numpy mirror of the cascade kernel's fingerprints (csrc/cascade.cu,
+    fp_filter.cuh): uint32 Horner's rule on the first window of each run of
+    `run` starts, then fp(i+1) = (fp(i) - t[i]) * M^-1 + t[i+m] * M^(m-1)
+    mod 2^32 for the rest of the run; the low 16 bits of each."""
+    n_starts = len(text) - m + 1
+    # zero past the text's end, as the kernel's tiles are
+    t = np.concatenate([text, np.zeros(run, np.uint8)]).astype(np.uint64)
+    inv = np.uint64(pow(mult, -1, 1 << 32))
+    top = np.uint64(pow(mult, m - 1, 1 << 32))
+    firsts = _run_starts(n_starts, run)
+    f = np.zeros(len(firsts), np.uint64)
+    for j in range(m - 1, -1, -1):
+        f = (f * np.uint64(mult) + t[firsts + j]) & MASK32
+    out = np.zeros(len(firsts) * run, np.uint64)
+    for k in range(run):
+        i = firsts + k
+        out[i] = f
+        f = ((f - t[i]) * inv + t[i + m] * top) & MASK32
+    return (out[:n_starts] & np.uint64(0xFFFF)).astype(np.int64)
+
+
+def _rolling_wids(text, m, bits, run):
+    """numpy mirror of the unguarded exact count's window ids
+    (csrc/exact_count.cu): per run of `run` starts, the first window's m-1
+    bytes by Horner, then key = ((key << bits) | t[i+m-1]) & (2^(m*bits)-1)
+    per start.  A run that reads a byte >= 2^bits rebuilds every id from
+    its m bytes (the ORed id), as the kernel does."""
+    n_starts = len(text) - m + 1
+    t = np.concatenate([text, np.zeros(48, np.uint8)]).astype(np.int64)
+    kmask = (1 << (m * bits)) - 1
+    out = np.empty(n_starts, np.int64)
+    for s in _run_starts(n_starts, run):
+        e = min(s + run, n_starts)
+        if (t[s:s + 48] >= 1 << bits).any():
+            for i in range(s, e):
+                key = 0
+                for j in range(m):
+                    key = (key << bits) | int(t[i + j])
+                out[i] = key
+            continue
+        key = 0
+        for j in range(m - 1):
+            key = (key << bits) | int(t[s + j])
+        for i in range(s, e):
+            key = ((key << bits) | int(t[i + m - 1])) & kmask
+            out[i] = key
+    return out
+
+
+@pytest.mark.parametrize("m", [1, 2, 8, 16, 32, 257, 4097])
+@pytest.mark.parametrize("sigma", [4, 256])
+def test_rolling_recurrences_match_keys(sigma, m):
+    """The redesigned kernels' recurrences, mirrored in numpy over runs of
+    16 (cascade) and 32 (exact count) starts on a text whose start count is
+    a multiple of neither, equal the port's and the JAX package's key
+    functions: the three base fingerprints for every m, the window ids where
+    the exact tier takes m (m*bits <= 16), on in-alphabet bytes and with
+    bytes up to 255 planted."""
+    rng = np.random.default_rng(sigma + m)
+    text = rng.integers(0, sigma, m - 1 + 1001).astype(np.uint8)
+    n_starts = len(text) - m + 1
+    # one compiled JAX program per m: eager jnp ops would compile per shape
+    jax_fps = jax.jit(lambda x: [jkeys.fp_keys(x, m, mult)
+                                 for mult in tkeys.FP_MULTS[:3]])
+    want = jax_fps(jnp.asarray(text.astype(np.int32)))
+    for mult, jwant in zip(tkeys.FP_MULTS[:3], want):
+        got = _rolling_fps(text, m, mult, 16)
+        assert np.array_equal(got, tkeys.fp_keys(torch.from_numpy(text), m,
+                                                 mult)[:n_starts])
+        assert np.array_equal(got, np.asarray(jwant)[:n_starts])
+    bits = bits_per_char(sigma)
+    if m * bits > 16:
+        return
+    dirty = text.copy()
+    dirty[rng.integers(0, len(text), 9)] = 255
+    for x in (text, dirty):
+        got = _rolling_wids(x, m, bits, 32)
+        assert np.array_equal(got, tkeys.wid_keys(torch.from_numpy(x), m,
+                                                  bits)[:n_starts])
+        assert np.array_equal(got, np.asarray(jkeys.wid_keys(
+            jnp.asarray(x.astype(np.int32)), m, bits))[:n_starts])
 
 
 def test_exact_wrapper_on_cpu_runs_plain():

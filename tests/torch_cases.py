@@ -104,3 +104,19 @@ def assert_tables_equal(jft, tft):
             assert np.array_equal(np.asarray(a), b.cpu().numpy()), f.name
         else:
             assert a == b, (f.name, a, b)
+
+
+def random_stages(k, stage_bits, fill, seed):
+    """(k, stage_bits/32) int32 stage bitmaps, each bit set with
+    probability fill, for kernel tests that need stage counts or widths no
+    pattern set of the test's size builds."""
+    rng = np.random.default_rng(seed)
+    bits = rng.random((k, stage_bits)) < fill
+    return np.packbits(bits, axis=1, bitorder="little").view("<i4")
+
+
+def edge_starts(run, tile):
+    """Start counts around a kernel's run of consecutive starts per thread
+    and its tile of starts per block iteration."""
+    return sorted({run - 1, run, run + 1, tile - 1, tile, tile + 1,
+                   2 * tile + run + 1})

@@ -1,4 +1,5 @@
-// Shared device code of the fingerprint-tier kernels (cascade.cu, filter.cu).
+// Shared device code of the fingerprint-tier kernels (cascade.cu, filter.cu,
+// stages.cu).
 //
 // Ports the key and stage code of the TPU filters: _bases_flat / _fp_keys_views
 // (tpu_smatcher/ops/pallas_filter.py:519/:499), derived_keys (:316) and the
@@ -6,13 +7,24 @@
 //
 // For a window t[i..i+m) the three base fingerprints are
 //     fp_s = sum_j t[i+j] * FP_MULTS[s]^j  mod 2^16      (s = 0, 1, 2)
-// computed by Horner's rule in uint32 and masked at the end: uint32
-// wraparound is exact mod 2^32, so the low 16 bits are exact for any m (the
-// TPU's bf16 MXU keys and their f32-accumulation limit do not exist here).
-// Stage s tests bit key_s = (fp0 + C_s*fp1 + D_s*fp2) mod stage_bits of its
-// bitmap; C, D <= 0xFFFF keep the uint32 sum exact mod stage_bits <= 2^18.
-// Bitmaps are read through the read-only cache (__ldg): up to 32 stages of up
-// to 262,144 bits do not fit shared memory.
+// computed in uint32 and masked at the end: uint32 wraparound is exact mod
+// 2^32, so the low 16 bits are exact for any m (the TPU's bf16 MXU keys and
+// their f32-accumulation limit do not exist here).  Stage s tests bit
+// key_s = (fp0 + C_s*fp1 + D_s*fp2) mod stage_bits of its bitmap; C, D <=
+// 0xFFFF keep the uint32 sum exact mod stage_bits <= 2^18.
+//
+// Two ways to get the fingerprints:
+//   - base_fps: Horner's rule over one window, 3m multiply-adds per start
+//     (filter.cu, stages.cu);
+//   - Rolling: the multipliers are odd, so invertible mod 2^32, and
+//         fp(i+1) = (fp(i) - t[i]) * M^-1 + t[i+m] * M^(m-1)
+//     holds exactly in uint32.  A thread runs Horner once for the first
+//     start of its run of consecutive starts (horner_fps, over a 16-byte
+//     aligned window in shared memory, 16 bytes per load) and rolls the rest
+//     in O(1): a subtract, a multiply and a multiply-add per fingerprint
+//     (cascade.cu).  Rolling::make computes M^-1 and M^(m-1) on the host.
+// Bitmaps are read through the read-only cache (__ldg), or from shared
+// memory where a kernel stages them (stages_hit_shared).
 
 #pragma once
 
@@ -94,6 +106,87 @@ __device__ __forceinline__ bool stages_hit(const BaseFps& f,
     ok = stage_hit(bitmaps + (size_t)s * words,
                    (f.f0 + cd.c[s] * f.f1 + cd.d[s] * f.f2) & smask);
   return ok;
+}
+
+// As stages_hit, with stages [s0, s1) at sbm + (s - s0) * words in shared
+// memory.
+__device__ __forceinline__ bool stages_hit_shared(uint32_t f0, uint32_t f1,
+                                                  uint32_t f2,
+                                                  const uint32_t* sbm,
+                                                  const StageCD& cd, int s0,
+                                                  int s1, int words,
+                                                  uint32_t smask) {
+  bool ok = true;
+  const uint32_t* bm = sbm;
+  for (int s = s0; s < s1 && ok; ++s, bm += words) {
+    uint32_t key = (f0 + cd.c[s] * f1 + cd.d[s] * f2) & smask;
+    ok = (bm[key >> 5] >> (key & 31)) & 1u;
+  }
+  return ok;
+}
+
+// The constants of the rolling update, per fingerprint: M^-1 mod 2^32 and
+// M^(m-1) mod 2^32.  Passed by value as a kernel parameter.
+struct Rolling {
+  uint32_t inv[3];
+  uint32_t top[3];
+
+  static uint32_t inverse(uint32_t a) {    // a odd; Newton: 3 bits -> 48
+    uint32_t x = a;                        // a * a == 1 mod 8
+    for (int i = 0; i < 4; ++i) x *= 2u - a * x;
+    return x;
+  }
+
+  static Rolling make(int m) {
+    const uint32_t mult[3] = {kMult0, kMult1, kMult2};
+    Rolling r;
+    for (int s = 0; s < 3; ++s) {
+      r.inv[s] = inverse(mult[s]);
+      uint32_t p = 1;
+      for (int j = 1; j < m; ++j) p *= mult[s];
+      r.top[s] = p;
+    }
+    return r;
+  }
+};
+
+// The three fingerprints (in uint32, not masked) of the m bytes at w, which
+// is 16-byte aligned in shared memory: Horner's rule from the last byte, the
+// bytes past the last whole 16 first, then 16 bytes per load.
+__device__ __forceinline__ void horner_fps(const uint8_t* w, int m,
+                                           uint32_t& a, uint32_t& b,
+                                           uint32_t& e) {
+  a = b = e = 0;
+  const int whole = m & ~15;
+  for (int j = m - 1; j >= whole; --j) {
+    uint32_t t = w[j];
+    a = a * kMult0 + t;
+    b = b * kMult1 + t;
+    e = e * kMult2 + t;
+  }
+  for (int c = whole - 16; c >= 0; c -= 16) {
+    const uint4 v = *reinterpret_cast<const uint4*>(w + c);
+    const uint32_t x[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int j = 15; j >= 0; --j) {
+      uint32_t t = (x[j >> 2] >> (8 * (j & 3))) & 0xFFu;
+      a = a * kMult0 + t;
+      b = b * kMult1 + t;
+      e = e * kMult2 + t;
+    }
+  }
+}
+
+// One rolling step: from the fingerprints of t[i..i+m) to those of
+// t[i+1..i+m+1), given out = t[i] and in = t[i+m].  Written as
+// fp * M^-1 + (in * M^(m-1) - out * M^-1) so that the chain from one start
+// to the next is a single multiply-add; the bracket does not depend on fp.
+__device__ __forceinline__ void roll_fps(const Rolling& r, uint32_t out,
+                                         uint32_t in, uint32_t& a,
+                                         uint32_t& b, uint32_t& e) {
+  a = a * r.inv[0] + (in * r.top[0] - out * r.inv[0]);
+  b = b * r.inv[1] + (in * r.top[1] - out * r.inv[1]);
+  e = e * r.inv[2] + (in * r.top[2] - out * r.inv[2]);
 }
 
 }  // namespace tsm
