@@ -12,6 +12,11 @@
    their runs and tiles, at m=1 (and 4097 for the cascade), sigma=256, a
    text at an odd address (exact count), and 131,072-bit stages with phase
    1 in shared memory and past it, rows overflowing (cascade);
+   filter_mask and filter_slots also on start counts around their run,
+   mask row and tile at m = 1, 31 and 4097, sigma = 4 and 256, on views
+   at every address mod 16, on 4096- to 2^18-bit stages (k = 1 and 32)
+   in shared memory and past it, and on a launch above 48 KB of shared
+   memory after a smaller one;
 4. drives the main paths through make_fast / FastScanner, each with the
    launch counters set to 0 just before it and read just after:
    - bench.py's five tiers on its 256 MiB DNA corpus (seed 7): each count
@@ -40,7 +45,9 @@
    paths gave it (the cascade at every bench tier's stages, filter_mask
    at dense32's 7 and saturated's 32 stages, exact_mask over the whole
    corpus, the guarded count over the padded one), and the positions phase
-   is profiled per path.  A bound charges the work the function needs
+   is profiled per path.  The launches are also weighted by the size they
+   ran at, and the filter launches at addresses that are not 16-byte
+   aligned (views) counted.  A bound charges the work the function needs
    (rolling fingerprints and window ids), not what the kernels do today.
 
 Any failed check raises: the exit code is then non-zero and no result
@@ -76,6 +83,8 @@ MAX_RETRIES = 6
 #: start counts around both
 EXACT_RUN, EXACT_TILE = 32, 8192
 CASCADE_RUN, CASCADE_TILE = 16, 4096
+#: filter.cu's run and tile (one 16,384-start sub-block)
+FILTER_RUN, FILTER_TILE = 32, 16384
 
 #: the ported kernels, by their cuda_filter.LAUNCHES name: (the wrapper's
 #: module, the wrapper, source, the TPU kernel it replaces)
@@ -123,7 +132,7 @@ INT32_OPS_PER_S = 33.5e12
 #: kernels do.  The fingerprint multipliers are odd, so invertible mod
 #: 2^16, and a fingerprint rolls from one start to the next in O(1):
 #: fp(i) = fp(i+1) * M + t[i] - t[i+m] * M^m, two multiply-adds for each of
-#: the three (the cascade rolls; filter.cu and stages.cu still run Horner's
+#: the three (the cascade and filter.cu roll; stages.cu still runs Horner's
 #: rule, 3m multiply-adds).
 ROLLING_FP_OPS = 3 * 2 * 2
 #: one stage test: key = f0 + C*f1 + D*f2 (2 multiply-adds), the mask, the
@@ -222,44 +231,75 @@ def read_launches(path, kernels, total):
 @contextlib.contextmanager
 def sized_launches():
     """Every kernel wrapper behind a spy that adds the length of the text
-    of each launch it makes to the yielded dict, under the LAUNCHES name
-    the launch counted, so launches can be weighted by the size they ran
-    at."""
+    of each launch it makes to the first yielded dict, under the LAUNCHES
+    name the launch counted, so launches can be weighted by the size they
+    ran at, counts in the second the launches on a text whose address is
+    not 16-byte aligned (a view at an offset), and adds in the third the
+    length of each stage-chain launch's text under its chain_kind."""
+    import collections
     import importlib
+    from tpu_smatcher_torch.ops import cuda_engines as ce
     from tpu_smatcher_torch.ops import cuda_filter as cf
     scanned = {k: 0 for k in cf.LAUNCHES}
+    unaligned = {k: 0 for k in cf.LAUNCHES}
+    chains = collections.Counter()
     saved = [(importlib.import_module(mod), w) for mod, w in WRAPPERS]
     saved = [(mod, w, getattr(mod, w)) for mod, w in saved]
 
-    def spy(real):
+    def spy(real, stage_chain):
         def call(text, *args, **kw):
             before = dict(cf.LAUNCHES)
             out = real(text, *args, **kw)
             for k, v in cf.LAUNCHES.items():
                 scanned[k] += (v - before[k]) * int(text.numel())
+                unaligned[k] += (v - before[k]) * (text.data_ptr() % 16 != 0)
+            if stage_chain:
+                chains[chain_kind(args[0], kw)] += int(text.numel())
             return out
         return call
 
     try:
         for mod, w, fn in saved:
-            setattr(mod, w, spy(fn))
-        yield scanned
+            setattr(mod, w, spy(fn, fn is ce.stages))
+        yield scanned, unaligned, chains
     finally:
         for mod, w, fn in saved:
             setattr(mod, w, fn)
 
 
-def size_weighted(total, scanned, per_kernel):
+def chain_kind(chain, kw):
+    """A stage-chain launch's kind: its flat flag, stage kinds and mode."""
+    return (f"{'stages_flat' if kw.get('flat') else 'stages'} "
+            f"{'+'.join(k for k, _ in chain)} {kw['mode']}")
+
+
+def size_weighted(total, scanned, per_kernel, chains, chain_times):
     """Each kernel's launches on the main paths weighted by the size they
     ran at: the MiB they scanned over 256 MiB, times the kernel's ms at 256
     MiB (linear in the size; a launch's fixed cost of a few microseconds
-    is not in it).  Logs the kernels by that estimate and its excess over
-    the bound, largest first."""
+    is not in it); stages and stages_flat per chain kind, at the time and
+    bound of that kind where one was timed.  Logs the kernels by that
+    estimate and its excess over the bound, largest first."""
+    est = {k: (scanned[k] / (256 * MiB) * per_kernel[k]["ms"],
+               scanned[k] / (256 * MiB) * per_kernel[k]["bound_ms"])
+           for k in total}
+    for name in ("stages", "stages_flat"):
+        parts = [(kind, n, chain_times.get(kind, (
+            per_kernel[name]["ms"], per_kernel[name]["bound_ms"])))
+            for kind, n in chains.items() if kind.split()[0] == name]
+        est[name] = (sum(n / (256 * MiB) * t for _, n, (t, _) in parts),
+                     sum(n / (256 * MiB) * b for _, n, (_, b) in parts))
+        log(f"{name} launches by chain kind (MiB scanned, ms and bound per "
+            "256 MiB):")
+        for kind, n, (t, b) in sorted(parts):
+            note = "" if kind in chain_times else \
+                f" (not timed: {name}'s JSON-line time)"
+            log(f"  {kind}: {n / MiB:.1f} MiB, {t:.3f} ms, bound {b:.4f}"
+                f"{note}")
     rows = []
     for k, n in total.items():
-        scale = scanned[k] / (256 * MiB)
-        rows.append((scale * (per_kernel[k]["ms"] - per_kernel[k]["bound_ms"]),
-                     k, n, scanned[k] / MiB, scale * per_kernel[k]["ms"]))
+        ms, bnd = est[k]
+        rows.append((ms - bnd, k, n, scanned[k] / MiB, ms))
     log("size-weighted launches (kernel: launches, MiB scanned, est. ms = "
         "MiB / 256 x ms at 256 MiB, est. ms over the bound):")
     for over, k, n, mib, ms in sorted(rows, reverse=True):
@@ -444,6 +484,29 @@ class Checks:
         return crowded
 
 
+    def filter_stages(self, label, t, bitmaps, m):
+        """filter_mask and filter_slots on the device text t and stage
+        bitmaps ((k, words) int32 on the device) with the first k (C, D)
+        pairs, against their plain versions.  Returns the sub-blocks'
+        counts."""
+        import torch
+        from tpu_smatcher_torch.ops import cuda_filter as cf
+        from tpu_smatcher_torch.ops.fast import STAGE_CD
+        k = int(bitmaps.shape[0])
+        args = dict(m=m, cd=STAGE_CD[:k])
+        desc = (f"{label}: n={int(t.shape[0])} address%16="
+                f"{t.data_ptr() % 16} m={m} k={k} stage_bits="
+                f"{int(bitmaps.shape[1]) * 32}")
+        mask = cf.filter_mask(t, bitmaps, **args)
+        pos, counts = cf.filter_slots(t, bitmaps, **args)
+        torch.cuda.synchronize()
+        self._err("filter_mask", _diff(mask, cf.filter_mask_plain(
+            t, bitmaps, **args)), desc)
+        self._err("filter_slots", _diff((pos, counts), cf.filter_slots_plain(
+            t, bitmaps, **args)), desc)
+        assert int(counts.sum()) == int(mask.sum()), desc
+        return counts
+
     def stages(self, label, text, chain, tables, m, sigma):
         """The stage-chain kernel against stages_plain in all three modes,
         guard on and off (and the flat call where the chain allows it)."""
@@ -615,8 +678,65 @@ def kernel_checks():
             ck.filters(f"short n={n}", text[:n].copy(), pats, stage_bits)
     ck.filters("match-dense", dense_text, dense_pats, 32768)
     assert crowded > 0, "no sub-block held more than 16 candidates"
+    filter_edge_checks(ck)
     stage_checks(ck, case)
     return ck
+
+
+def filter_edge_checks(ck):
+    """filter_mask and filter_slots on start counts around their run, a
+    mask row and a tile, at m = 1, 31 and 4097 and sigma = 4 and 256, on
+    views at every address mod 16 (staged from the aligned address below
+    them), with crowded and sparse sub-blocks; on 4096- to 2^18-bit stages,
+    k = 1 and 32, in shared memory and past it (bits set with probability
+    0.8, bytes up to 255); and three launches above 48 KB of shared memory,
+    the middle one smaller."""
+    import numpy as np
+    import torch
+    log("kernel vs plain (filter_mask, filter_slots: runs, rows, tiles, "
+        "addresses, stage widths, tolerance 0):")
+    rng = np.random.default_rng(21)
+    starts = sorted(set(edge_starts(FILTER_RUN, FILTER_TILE))
+                    | {127, 128, 129})
+    crowded = 0
+    for sigma in (4, 256):
+        for m in (1, 31, 4097):
+            text = rng.integers(0, sigma, m - 1 + 2 * FILTER_TILE + 64
+                                ).astype(np.uint8)
+            full = torch.from_numpy(text).cuda()
+            stages = [torch.from_numpy(random_stages(k, bits, fill, seed=m))
+                      .cuda() for k, bits, fill in ((1, 4096, 0.5),
+                                                    (3, 16384, 0.2))]
+            for i, s in enumerate(starts):
+                t = full[i % 16:i % 16 + m - 1 + s]
+                for bm in stages:
+                    counts = ck.filter_stages(f"sigma={sigma} {s} starts", t,
+                                              bm, m)
+                    crowded += int((counts > 16).sum())
+            log(f"  filter sigma={sigma} m={m}: {len(starts)} start counts "
+                f"{starts} at addresses 0..15 mod 16, k=1 and 3: "
+                f"max_abs_err 0")
+    assert crowded > 0, "no crowded sub-block in the edge checks"
+    for stage_bits in (4096, 16384, 131072, 262144):
+        for k in (1, 32):
+            bm = torch.from_numpy(random_stages(k, stage_bits, 0.8,
+                                                seed=k + stage_bits)).cuda()
+            for m in (32, 4097):
+                t = torch.from_numpy(rng.integers(
+                    0, 256, m - 1 + MiB + 77).astype(np.uint8)).cuda()
+                ck.filter_stages("wide stages", t, bm, m)
+                counts = ck.filter_stages("wide stages", t[3:], bm, m)
+                log(f"  filter stage_bits={stage_bits} k={k} m={m}, "
+                    f"aligned and at address 3 mod 16: candidates "
+                    f"{int(counts.sum())}, max_abs_err 0")
+    t = torch.from_numpy(rng.integers(0, 4, 3 * FILTER_TILE).astype(
+        np.uint8)).cuda()
+    wide = torch.from_numpy(random_stages(2, 262144, 0.5, seed=1)).cuda()
+    mid = torch.from_numpy(random_stages(13, 32768, 0.8, seed=2)).cuda()
+    for bm in (wide, mid, wide):       # 64 KB, 52 KB, then 64 KB again
+        ck.filter_stages("after a smaller large launch", t, bm, 32)
+    log("  filter launches above 48 KB of shared memory, the middle one "
+        "smaller: max_abs_err 0")
 
 
 # ---------------------------------------------------------------------------
@@ -1266,7 +1386,8 @@ def engines_timings(card, ck, tdev, engines, tier_ms):
     """Per-scan medians of the eleven engines beside make_fast's at the same
     m, a profile per stage kind, and the stage kernel on each engine's own
     main-path inputs, held against its plain version, then timed against
-    it and its bound."""
+    it and its bound.  Returns the JSON line's stages / stages_flat entries
+    and {chain_kind: (ms, bound ms) per 256 MiB} of every chain timed."""
     from tpu_smatcher_torch.ops import cuda_engines as ce
     n = int(tdev.shape[0])
     fast = {m: tier_ms[name] for name, m, p, _ in TIERS if p == 10_000}
@@ -1281,21 +1402,30 @@ def engines_timings(card, ck, tdev, engines, tier_ms):
                 lambda: engines[key].count_async(tdev).result())
     log("stages / stages_flat: no single PyTorch call computes a stage "
         "chain, so their library_ms is null")
-    per_kernel = {}
+    per_kernel, chain_times = {}, {}
     for key in PROFILED:
         eng = engines[key]
-        for text, chain, tables, kw in record_stages(
-                lambda: eng.count_async(tdev).result()):
+        # the async scan's chain; at m=32 also count()'s (mask mode), and
+        # the exact tier's guarded mask of positions() on the 4 MiB prefix
+        calls = record_stages(lambda: eng.count_async(tdev).result())
+        if key[1] == 32:
+            calls += record_stages(lambda: eng.count(tdev))
+        if key == ("ac", 8):
+            calls += record_stages(lambda: eng.positions(tdev[:N_GATE]))
+        for text, chain, tables, kw in calls:
             kname = "stages_flat" if kw.get("flat") else "stages"
             res = kernel_time(
                 card, ck, f"engine {key[0]} m={key[1]} {kw['mode']} "
-                f"{'+'.join(k for k, _ in chain)}", kname,
-                lambda: ce.stages(text, chain, tables, **kw),
+                f"{'+'.join(k for k, _ in chain)} n={int(text.shape[0])}",
+                kname, lambda: ce.stages(text, chain, tables, **kw),
                 lambda: ce.stages_plain(text, chain, tables, **kw),
                 stages_bound(text, chain, tables, kw, eng.fast_path.ft))
-            if key == JSON_TIMED[kname]:
+            scale = N_FULL / int(text.shape[0])     # per 256 MiB
+            chain_times.setdefault(chain_kind(chain, kw), (
+                res["ms"] * scale, res["bound_ms"] * scale))
+            if key == JSON_TIMED[kname] and kw["mode"] == "count":
                 per_kernel[kname] = res
-    return per_kernel
+    return per_kernel, chain_times
 
 
 def main() -> int:
@@ -1321,7 +1451,7 @@ def main() -> int:
     log(f"corpus: {N_FULL} bytes DNA seed 7 "
         f"({time.perf_counter() - t0:.1f} s)")
     total = {k: 0 for k in KERNELS}
-    with sized_launches() as scanned:
+    with sized_launches() as (scanned, unaligned, chains):
         engines, codes = tiers_path(text, tdev, total)
         pats, slot_eng, gate0, full0 = slot32_path(text, tdev, total)
         dense = dense32_path(text, tdev, pats, gate0, full0, total)
@@ -1339,12 +1469,16 @@ def main() -> int:
     t1 = time.perf_counter()
     per_kernel.update(positions_timings(card, ck, tdev, ext, engines))
     t2 = time.perf_counter()
-    per_kernel.update(engines_timings(card, ck, tdev, named, tier_ms))
+    engine_kernels, chain_times = engines_timings(card, ck, tdev, named,
+                                                  tier_ms)
+    per_kernel.update(engine_kernels)
     log(f"timings done at {time.perf_counter() - t0:.1f} s (positions "
         f"phase {t2 - t1:.1f} s, engines phase "
         f"{time.perf_counter() - t2:.1f} s)")
 
-    size_weighted(total, scanned, per_kernel)
+    size_weighted(total, scanned, per_kernel, chains, chain_times)
+    log("launches on texts at addresses not 16-byte aligned: " + ", ".join(
+        f"{k} {unaligned[k]} of {total[k]}" for k in total if total[k]))
 
     kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
                 "launches": total[k], "max_abs_err": ck.max_err[k],

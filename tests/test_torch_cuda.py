@@ -199,6 +199,88 @@ def test_slice_on_the_card(cuda, sigma, m, p_size, n):
     assert eng.fallback_scans == 0
 
 
+#: filter.cu's run (starts per thread) and tile (starts per block
+#: iteration, one sub-block)
+FILTER_RUN, FILTER_TILE = 32, 16384
+
+
+def _check_filters(t, bitmaps, m, cd):
+    """filter_mask and filter_slots on t against their plain versions,
+    exactly, each launched once; returns the sub-blocks' counts."""
+    before = dict(cf.LAUNCHES)
+    mask = cf.filter_mask(t, bitmaps, m=m, cd=cd)
+    pos, counts = cf.filter_slots(t, bitmaps, m=m, cd=cd)
+    torch.cuda.synchronize()
+    assert cf.LAUNCHES["filter_mask"] == before["filter_mask"] + 1
+    assert cf.LAUNCHES["filter_slots"] == before["filter_slots"] + 1
+    assert torch.equal(mask, cf.filter_mask_plain(t, bitmaps, m=m, cd=cd))
+    pp, pc = cf.filter_slots_plain(t, bitmaps, m=m, cd=cd)
+    assert torch.equal(pos, pp) and torch.equal(counts, pc)
+    assert int(counts.sum()) == int(mask.sum())
+    return counts
+
+
+@pytest.mark.parametrize("m", [1, 31, 4097])
+@pytest.mark.parametrize("sigma", [4, 256])
+def test_filter_kernels_at_edges_match_plain(cuda, sigma, m):
+    """Both modes equal their plain versions on start counts around a run,
+    a 128-start mask row and a tile, on texts at every address mod 16
+    (views staged from the aligned address below them), with crowded
+    sub-blocks (k=1 at half fill) and sparse ones (k=3)."""
+    rng = np.random.default_rng(sigma + m)
+    text = rng.integers(0, sigma, m - 1 + 2 * cf.SUB_BLOCK + 64).astype(
+        np.uint8)
+    full = torch.from_numpy(text).to(cuda)
+    stages = [(torch.from_numpy(random_stages(k, bits, fill, seed=m)).to(
+        cuda), tfast.STAGE_CD[:k]) for k, bits, fill in ((1, 4096, 0.5),
+                                                           (3, 16384, 0.2))]
+    starts = sorted(set(edge_starts(FILTER_RUN, FILTER_TILE))
+                    | {127, 128, 129})
+    crowded = 0
+    for i, s in enumerate(starts):
+        off = i % 16
+        t = full[off:off + m - 1 + s]
+        assert t.data_ptr() % 16 == off
+        for bitmaps, cd in stages:
+            crowded += int((_check_filters(t, bitmaps, m, cd)
+                            > cf.BLOCK_SLOTS).sum())
+    assert crowded
+
+
+@pytest.mark.parametrize("k", [1, 32])
+@pytest.mark.parametrize("stage_bits", [4096, 16384, 131072, 262144])
+def test_filter_kernels_on_wide_stages_match_plain(cuda, stage_bits, k):
+    """Stage bitmaps in shared memory (all k up to 112 KB per block beside
+    the text buffers) and past it (32 stages of 131,072 or 262,144 bits:
+    the first ones there, at least the three tested without a branch, the
+    rest through the read-only cache), bits set with probability 0.8 so
+    that deep stages run, bytes up to 255, m = 32 and 4097."""
+    bitmaps = torch.from_numpy(random_stages(k, stage_bits, 0.8,
+                                             seed=k + stage_bits)).to(cuda)
+    rng = np.random.default_rng(k)
+    for m in (32, 4097):
+        text = rng.integers(0, 256, m - 1 + 3 * cf.SUB_BLOCK + 77).astype(
+            np.uint8)
+        t = torch.from_numpy(text).to(cuda)
+        _check_filters(t, bitmaps, m, tfast.STAGE_CD[:k])
+        _check_filters(t[3:], bitmaps, m, tfast.STAGE_CD[:k])
+
+
+def test_filter_kernels_after_a_smaller_large_launch(cuda):
+    """Three launches of each mode above the default 48 KB of shared
+    memory: two 262,144-bit stages (64 KB), then thirteen 32,768-bit ones
+    (52 KB), then the 64 KB again, which must raise the kernel's limit
+    again after the smaller launch lowered it."""
+    rng = np.random.default_rng(5)
+    t = torch.from_numpy(rng.integers(0, 4, 3 * cf.SUB_BLOCK).astype(
+        np.uint8)).to(cuda)
+    wide = torch.from_numpy(random_stages(2, 262144, 0.5, seed=1)).to(cuda)
+    mid = torch.from_numpy(random_stages(13, 32768, 0.8, seed=2)).to(cuda)
+    for bitmaps in (wide, mid, wide):
+        k = int(bitmaps.shape[0])
+        _check_filters(t, bitmaps, 32, tfast.STAGE_CD[:k])
+
+
 #: the filter kernel of each fingerprint route
 ROUTE_KERNEL = {"slot": "filter_slots", "cascade": "cascade",
                 "mask": "filter_mask"}

@@ -495,7 +495,9 @@ def test_engine_async_match_dense_adapts():
 
 def test_engine_streams_and_without_fastpath(tmp_path):
     """count_file / positions_file through the engines; without a fast path
-    positions and attribution raise instead of moving to the host."""
+    positions raises, as in the JAX package, and attribution runs on a
+    FastScanner over the engine's pattern codes (tests/test_torch_faults.py
+    holds it against the JAX package)."""
     text, pats = make_case(4, 8, 30, 30_000, seed=9)
     truth = datagen.count_matches(text, pats)
     path = tmp_path / "corpus.bin"
@@ -507,9 +509,13 @@ def test_engine_streams_and_without_fastpath(tmp_path):
     assert bare.count_file(str(path), chunk=7_000) == truth
     assert bare.scan_many([text, text[:100]]) == [
         truth, datagen.count_matches(text[:100], pats)]
-    for call in (bare.positions, bare.matches, bare.count_per_pattern):
-        with pytest.raises(NotImplementedError):
-            call(text)
+    with pytest.raises(NotImplementedError):
+        bare.positions(text)
+    pos, ids = bare.matches(text)
+    want = np.flatnonzero(datagen.match_starts(text, pats))
+    np.testing.assert_array_equal(pos, want)
+    np.testing.assert_array_equal(ids, datagen.match_ids(text, want, pats))
+    assert bare.count_per_pattern(text).sum() == truth
 
 
 def test_make_engine_needs_cuda_by_default():

@@ -152,7 +152,8 @@ def test_port_imports_no_jax():
     """A fresh interpreter that imports the port, makes data with its own
     generator, counts and enumerates positions and pattern ids on the CPU,
     and counts through the seven named engines, with and without their
-    fast path, holds no jax and no tpu_smatcher* module."""
+    fast path (attributing without it), holds no jax and no tpu_smatcher*
+    module."""
     code = (
         "import sys\n"
         "import tpu_smatcher_torch as t\n"
@@ -173,6 +174,7 @@ def test_port_imports_no_jax():
         "    for fastpath in (True, False):\n"
         "        e = t.make_engine(name, ps, device='cpu', fastpath=fastpath)\n"
         "        assert e.count(text) == want, (name, fastpath)\n"
+        "    assert e.count_per_pattern(text).sum() == want, name\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
         "       or k == 'tpu_smatcher' or k.startswith('tpu_smatcher.')]\n"
         "assert not bad, bad\n"

@@ -1,18 +1,28 @@
 """Time this checkout's main-path filter kernels against other checkouts'
-on one card, in one process, interleaved, on bench.py's five tiers (256 MiB
-DNA, text seed 7, pattern seed 8 at m=8 and 8+m otherwise): the unguarded
-exact count (tsm_exact_count) at m=8 p=10k, and the cascade (tsm_cascade)
-at m=16 p=10k, m=32 p=10k, m=32 p=30k and m=32 p=100k with each route's
-own (k1, kt).
+on one card, in one process, interleaved, on bench.py's 256 MiB DNA corpus
+(text seed 7; pattern seed 8 at m=8 and 8+m otherwise):
+
+  exact_count   the unguarded exact count (tsm_exact_count), m=8 p=10k
+  cascade       the cascade (tsm_cascade) at m=16 p=10k, m=32 p=10k, m=32
+                p=30k and m=32 p=100k, each with its route's (k1, kt)
+  filter_slots  filter.cu's slots mode (tsm_filter_slots) on slot32: m=32
+                p=1000, the slot route's 7 stages of 4096 bits
+  filter_mask   filter.cu's mask mode (tsm_filter_mask) on dense32's dense
+                pass (the slot32 set, pattern 0 planted every 256 bytes over
+                [1 MiB, 3 MiB), its k stages), on saturated (the 4 MiB
+                prefix, p=10k at 4096-bit stages, its k stages) and on the
+                fp m=32 p=10k positions / matches piece (the whole text, its
+                k stages)
 
     python3 -m tpu_smatcher_torch.ab_cascade OTHER_CHECKOUT [...] [--reps N]
+        [--kernels NAME ...]
 
-Each checkout's csrc/exact_count.cu and csrc/cascade.cu are built with this
-checkout's nvcc flags into this checkout's build/ directory and bound by
-their C interfaces, which every build must share (this checkout's
+Each checkout's csrc source of a kernel is built with this checkout's nvcc
+flags and that checkout's headers into this checkout's build/ directory and
+bound by its C interface, which every build must share (this checkout's
 argtypes).  Every build's output must equal this one's.  Each rep launches
 every build once, in an order that rotates from rep to rep, timed by CUDA
-events; the script prints the card, and per tier each build's median ms
+events; the script prints the card, and per input each build's median ms
 and its ratio to this checkout's.  Two builds in one process see the same
 clocks and the same inputs, which two runs of chip_smoke.py do not."""
 
@@ -28,10 +38,16 @@ import sys
 
 #: kernel name -> (source, C function)
 KERNELS = {"exact_count": ("exact_count.cu", "tsm_exact_count"),
-           "cascade": ("cascade.cu", "tsm_cascade")}
+           "cascade": ("cascade.cu", "tsm_cascade"),
+           "filter_slots": ("filter.cu", "tsm_filter_slots"),
+           "filter_mask": ("filter.cu", "tsm_filter_mask")}
 #: bench.py's tiers: (name, m, p)
 TIERS = (("exact", 8, 10_000), ("fp16", 16, 10_000), ("fp", 32, 10_000),
          ("fp32_p30k", 32, 30_000), ("fp32_p100k", 32, 100_000))
+#: the filter kernels' inputs: (name, kernel)
+CELLS = (("slot32", "filter_slots"), ("dense32", "filter_mask"),
+         ("saturated", "filter_mask"), ("fp_matches", "filter_mask"))
+MiB = 1 << 20
 
 
 def _csrc(checkout: str) -> str:
@@ -101,6 +117,74 @@ def launcher(text, eng):
     return "cascade", f"m={m} k1={k1} kt={kt}", launch
 
 
+def filter_launcher(text, ft, k, kernel):
+    """(label, launch(fn) -> outputs) of filter.cu's mask or slots mode on
+    text with the first k stages of ft."""
+    import torch
+    from tpu_smatcher_torch.ops import cuda_filter as cf
+    from tpu_smatcher_torch.ops.common import cdiv
+    n, m = int(text.shape[0]), ft.m
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    dev = torch.cuda.current_device()
+    bitmaps = ft.bitmaps[:k]
+    stage_bits = int(bitmaps.shape[1]) * 32
+    cd = cf._cd_host(ft.cd(k), k)
+    label = f"n={n} m={m} k={k} stage_bits={stage_bits}"
+    if kernel == "filter_mask":
+        rows = cdiv(n - m + 1, cf.ROW)
+
+        def launch(fn):
+            mask = torch.empty((rows, cf.ROW), dtype=torch.int8,
+                               device="cuda")
+            rc = fn(text.data_ptr(), n, m, bitmaps.data_ptr(), k, stage_bits,
+                    cd, mask.data_ptr(), rows, dev, stream)
+            assert rc == 0, f"launch failed: cudaError {rc}"
+            return (mask,)
+        return label, launch
+    n_sub = cdiv(n - m + 1, cf.SUB_BLOCK)
+
+    def launch(fn):
+        pos = torch.empty((n_sub, cf.BLOCK_SLOTS), dtype=torch.int32,
+                          device="cuda")
+        counts = torch.empty((n_sub,), dtype=torch.int32, device="cuda")
+        rc = fn(text.data_ptr(), n, m, bitmaps.data_ptr(), k, stage_bits, cd,
+                pos.data_ptr(), counts.data_ptr(), n_sub, dev, stream)
+        assert rc == 0, f"launch failed: cudaError {rc}"
+        return pos, counts
+    return label, launch
+
+
+def cell_input(cell, text, t):
+    """(device text, tables, k) of a filter kernel's input: the stages the
+    cell's own path gives the kernel."""
+    import torch
+    from tpu_smatcher_torch.core import datagen
+    from tpu_smatcher_torch.core.alphabet import Alphabet
+    from tpu_smatcher_torch.ops.fast import (FastScanner, build_fast,
+                                             stages_for)
+    ab = Alphabet.dna()
+    p = 1000 if cell in ("slot32", "dense32") else 10_000
+    pats = datagen.generate_patterns(text, p, 32, ab, frac_present=0.5,
+                                     seed=40)
+    if cell == "saturated":
+        t = t[:4 * MiB]
+        ft = build_fast(pats.codes, 4, stage_bits=4096, device="cuda")
+    else:
+        ft = build_fast(pats.codes, 4, device="cuda")
+    eng = FastScanner(ft)
+    n = int(t.shape[0])
+    k = stages_for(ft, n, eng.cap)
+    if cell == "slot32":
+        route, _, k = eng._pick_path(n, k)
+        assert route == "slot", route
+    elif cell == "dense32":
+        idx = (torch.arange(MiB, 3 * MiB, 256, device="cuda")[:, None]
+               + torch.arange(32, device="cuda"))
+        t = t.clone()
+        t[idx] = torch.from_numpy(pats.codes[0]).cuda()
+    return t, ft, k
+
+
 def time_builds(builds, launch, reps):
     """{label: [ms per rep]}: every build once per rep, in an order that
     rotates from rep to rep, after one warm-up rep."""
@@ -120,10 +204,29 @@ def time_builds(builds, launch, reps):
     return times
 
 
+def compare(kb, name, what, launch, reps):
+    """Every build's output against this checkout's, then their times."""
+    import torch
+    want = launch(kb[0][1])
+    for label, fn in kb[1:]:
+        got = launch(fn)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), \
+            f"{name} {label}: output differs from this checkout's"
+    times = time_builds(kb, launch, reps)
+    base = statistics.median(times["this"])
+    print(f"{name}: {what}, median of {reps} interleaved reps:")
+    for label, ts in times.items():
+        med = statistics.median(ts)
+        print(f"  {label}: {med:.3f} ms (min {min(ts):.3f}, max "
+              f"{max(ts):.3f}), {med / base:.3f}x this", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("others", nargs="+", help="checkout roots to time")
     ap.add_argument("--reps", type=int, default=15)
+    ap.add_argument("--kernels", nargs="+", choices=sorted(KERNELS),
+                    default=sorted(KERNELS), help="kernels to time")
     args = ap.parse_args(argv)
 
     import torch
@@ -141,31 +244,29 @@ def main(argv=None) -> int:
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     roots = [("this", here)] + [(o, o) for o in args.others]
     builds = {k: [(label, build(root, label, k)) for label, root in roots]
-              for k in KERNELS}
+              for k in args.kernels}
 
     n = 1 << 28
     ab = Alphabet.dna()
     text = datagen.generate_text(n, ab, seed=7)
     t = torch.from_numpy(text).cuda()
     for name, m, p in TIERS:
+        if not {"exact_count", "cascade"} & set(builds):
+            break
         pats = datagen.generate_patterns(text, p, m, ab, frac_present=0.5,
                                          seed=8 if m == 8 else 8 + m)
         eng = FastScanner(build_fast(pats.codes, 4, device="cuda"))
         kernel, shape, launch = launcher(t, eng)
-        kb = builds[kernel]
-        want = launch(kb[0][1])
-        for label, fn in kb[1:]:
-            got = launch(fn)
-            assert all(torch.equal(a, b) for a, b in zip(got, want)), \
-                f"{name} {label}: output differs from this checkout's"
-        times = time_builds(kb, launch, args.reps)
-        base = statistics.median(times["this"])
-        print(f"tier {name} (p={p}): {kernel} {shape} n=2^28, median of "
-              f"{args.reps} interleaved reps:")
-        for label, ts in times.items():
-            med = statistics.median(ts)
-            print(f"  {label}: {med:.3f} ms (min {min(ts):.3f}, max "
-                  f"{max(ts):.3f}), {med / base:.3f}x this", flush=True)
+        if kernel in builds:
+            compare(builds[kernel], f"tier {name} (p={p})",
+                    f"{kernel} {shape} n=2^28", launch, args.reps)
+    for cell, kernel in CELLS:
+        if kernel not in builds:
+            continue
+        tc, ft, k = cell_input(cell, text, t)
+        shape, launch = filter_launcher(tc, ft, k, kernel)
+        compare(builds[kernel], f"cell {cell}", f"{kernel} {shape}", launch,
+                args.reps)
     return 0
 
 

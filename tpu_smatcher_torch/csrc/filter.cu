@@ -2,8 +2,8 @@
 //
 // Replaces two TPU kernels of tpu_smatcher/ops/pallas_filter.py:
 //   - mask mode:  _filter_mask_flat_kernel (:1052, via filter_mask_pallas
-//     :1066), the per-start candidate mask of the mask route, the sync ladder
-//     and the dense pass;
+//     :1066), the per-start candidate mask of the mask route, the sync ladder,
+//     the dense pass and the fingerprint tier's positions pieces;
 //   - slots mode: _filter_slots_flat_kernel (:559, via filter_slots_pallas
 //     :618) with its in-kernel compaction slot_row (:348), the slot route.
 // Both run _candidates_flat (:530): a start i < n - m + 1 is a candidate iff
@@ -23,94 +23,281 @@
 // slot_row's rank matmuls, and (n_sub, 16) + (n_sub,) replaces the TPU's
 // (n_sub, 128) rows with the count in lane 16.
 //
-// What bounds it on an H100: integer ALU, as for the cascade.  Each start
-// costs 3*m multiply-adds (Horner) plus about 1/(1-fill) random bitmap reads;
-// the text is read once and the outputs are small (mask: one byte per start;
-// slots: 68 bytes per 16,384 starts).  The design: a block's starts plus the
-// (m-1)-byte halo sit in shared memory, each thread takes one start per step
-// and stops testing at its first stage miss, bitmaps come through __ldg.
-// Slots mode ranks candidates with __ballot_sync + __popc within a warp and a
-// shared-memory prefix over the block's warps, chunk by chunk in position
-// order, so the first 16 are chosen deterministically (the plain torch
-// version ranks with a cumsum and agrees bit for bit).
+// What bounds it on an H100: integer issue, as for the cascade.  The text is
+// read once and the outputs are small (mask: one byte per start; slots: 68
+// bytes per 16,384 starts); the work per start is the three fingerprints and
+// about 1/(1-fill) stage tests.  The first design (one start per thread,
+// Horner's rule over the whole window, 3m multiply-adds and m shared-memory
+// byte loads per start, the text staged byte by byte, bitmaps through __ldg)
+// ran at 5-6% of its bound.  This design follows cascade.cu:
+//   - rolling fingerprints: a thread owns a run of kRun = 32 consecutive
+//     starts, runs Horner's rule once on the run's first window (16 bytes per
+//     shared-memory load) and rolls the other 31 in O(1) (fp_filter.cuh,
+//     tsm::roll_fps); the bytes leaving and entering the window come from
+//     16-byte shared-memory loads, funnel-shifted into place;
+//   - 512-thread blocks in a persistent grid walking tiles of 16,384 starts
+//     (one sub-block), the text staged by cp.async into two buffers so the
+//     next tile's copy overlaps this tile's work (tile_pipeline.cuh).  A text at an address that is not 16-byte aligned
+//     (a view at any offset: the sync ladder's budget pieces, the positions
+//     pieces) is copied from the aligned address below it, which lies in the
+//     same allocation, and its tile sits `shift` bytes into the buffer; the
+//     bytes before the view and past its end never reach a start's result;
+//   - the stage bitmaps in shared memory: all k stages where they fit in
+//     kSmemTarget beside the two buffers (two blocks per SM), else the first
+//     ks, the rest through __ldg; the first kBranchFree always (past the
+//     target, one block per SM, only with 2^18-bit stages);
+//   - stages 0 to kBranchFree - 1, which nearly every warp runs for nearly
+//     every start (a warp runs a stage while any of its 32 starts is alive),
+//     are tested for every start without a branch; the rest stop at the
+//     first miss;
+//   - mask mode: a thread's 32 results are two 16-byte stores (a 128-start
+//     row is 4 threads);
+//   - slots mode: a tile is one sub-block.  Each thread keeps its run's
+//     candidates as a 32-bit mask; a block-wide exclusive prefix of __popc
+//     in position order (a __shfl_up_sync scan in each warp, the warps'
+//     totals in shared memory) ranks them, and a thread whose rank is below
+//     16 writes its first candidates' positions; the plain torch version
+//     ranks with a cumsum and agrees bit for bit.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "fp_filter.cuh"
+#include "tile_pipeline.cuh"
 
 namespace {
 
-using tsm::BaseFps;
+using tsm::Rolling;
 using tsm::StageCD;
 
-constexpr int kThreads = 256;
-constexpr int kMaskTile = 2048;   // starts per block, mask mode
-constexpr int kSub = 16384;       // starts per sub-block (= block), slots mode
-constexpr int kSlots = 16;        // BLOCK_SLOTS
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+constexpr int kRun = 32;                  // consecutive starts per thread
+constexpr int kTile = kThreads * kRun;    // starts per tile
+constexpr int kSub = 16384;               // starts per sub-block, slots mode
+constexpr int kSlots = 16;                // BLOCK_SLOTS
+constexpr int kBranchFree = 3;            // stages tested without a branch
+// Shared memory a block keeps to, so that two blocks (32 warps) fit on an SM.
+constexpr int kSmemTarget = 112 * 1024;
+static_assert(kTile == kSub, "a slots-mode tile is one sub-block");
 
-__device__ __forceinline__ bool is_candidate(const uint8_t* w, int m,
-                                             const uint32_t* bitmaps,
-                                             const StageCD& cd, int k,
-                                             int words, uint32_t smask) {
-  BaseFps f = tsm::base_fps(w, m);
-  return tsm::stages_hit(f, bitmaps, cd, 0, k, words, smask);
+// Bytes of one text buffer: the tile's starts and the (m-1)-byte halo at an
+// offset shift < 16, and the chunks after them that a run's shifted loads
+// may touch.
+__host__ __device__ inline int buf_bytes(int m) {
+  return (kTile + m + 30) / 16 * 16 + 16;
 }
 
-__global__ void __launch_bounds__(kThreads)
-filter_mask_kernel(const uint8_t* __restrict__ text, long long n, int m,
-                   long long n_starts, long long n_out,
-                   const uint32_t* __restrict__ bitmaps, int k, int words,
-                   uint32_t smask, StageCD cd, int8_t* __restrict__ mask) {
-  extern __shared__ uint8_t tile[];                 // kMaskTile + m - 1
-  const long long base = (long long)blockIdx.x * kMaskTile;
-  tsm::load_tile<kThreads>(tile, text, n, base, kMaskTile + m - 1);
-  __syncthreads();
-  for (int i = threadIdx.x; i < kMaskTile; i += kThreads) {
-    long long s = base + i;
-    if (s >= n_out) break;
-    bool c = s < n_starts &&
-             is_candidate(tile + i, m, bitmaps, cd, k, words, smask);
-    mask[s] = c ? 1 : 0;
-  }
+// Bit `key` of a bitmap in shared memory.
+__device__ __forceinline__ uint32_t bit_of(const uint32_t* bm, uint32_t key) {
+  return (bm[key >> 5] >> (key & 31)) & 1u;
 }
 
-__global__ void __launch_bounds__(kThreads)
-filter_slots_kernel(const uint8_t* __restrict__ text, long long n, int m,
-                    long long n_starts, const uint32_t* __restrict__ bitmaps,
-                    int k, int words, uint32_t smask, StageCD cd,
-                    int* __restrict__ pos, int* __restrict__ counts) {
-  extern __shared__ uint8_t tile[];                 // kSub + m - 1
-  __shared__ int wcnt[kThreads / 32];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const long long base = (long long)blockIdx.x * kSub;
-  tsm::load_tile<kThreads>(tile, text, n, base, kSub + m - 1);
-  __syncthreads();
-  int* out = pos + (long long)blockIdx.x * kSlots;
-  int running = 0;               // candidates in earlier chunks (block-uniform)
-  for (int c0 = 0; c0 < kSub && base + c0 < n_starts; c0 += kThreads) {
-    long long s = base + c0 + tid;
-    bool c = s < n_starts &&
-             is_candidate(tile + c0 + tid, m, bitmaps, cd, k, words, smask);
-    unsigned bal = __ballot_sync(0xffffffffu, c);
-    if (lane == 0) wcnt[warp] = __popc(bal);
-    __syncthreads();
-    int before = 0, total = 0;
+// The 4 * kOut bytes at b + p as words (b 16-byte aligned, p % 16 == s, s
+// uniform over the block): kOut / 4 + 1 aligned loads, funnel-shifted by s.
+template <int kOut>
+__device__ __forceinline__ void words_at(const uint8_t* b, int p, int s,
+                                         uint32_t (&out)[kOut]) {
+  const uint4* c = reinterpret_cast<const uint4*>(b) + (p >> 4);
+  uint32_t w[kOut + 4];
 #pragma unroll
-    for (int w = 0; w < kThreads / 32; ++w) {
-      int x = wcnt[w];
-      total += x;
-      if (w < warp) before += x;
-    }
-    if (c) {
-      int rank = running + before + __popc(bal & ((1u << lane) - 1u));
-      if (rank < kSlots) out[rank] = (int)s;
-    }
-    running += total;
-    __syncthreads();             // wcnt is rewritten by the next chunk
+  for (int i = 0; i <= kOut / 4; ++i) {
+    const uint4 h = c[i];
+    w[4 * i] = h.x, w[4 * i + 1] = h.y, w[4 * i + 2] = h.z,
+    w[4 * i + 3] = h.w;
   }
-  if (tid >= running && tid < kSlots) out[tid] = -1;
-  if (tid == 0) counts[blockIdx.x] = running;
+  tsm::shifted_words(w, s, out);
+}
+
+// The three fingerprints (in uint32, not masked) of the m bytes at b + p, b
+// 16-byte aligned in shared memory and s = p % 16 uniform over the block:
+// tsm::horner_fps where p is aligned; else Horner's rule from the last byte,
+// the bytes past the last whole 16 one by one, then 16 bytes per step.
+__device__ __forceinline__ void horner_at(const uint8_t* b, int p, int s,
+                                          int m, uint32_t& f0, uint32_t& f1,
+                                          uint32_t& f2) {
+  if (s == 0) {
+    tsm::horner_fps(b + p, m, f0, f1, f2);
+    return;
+  }
+  f0 = f1 = f2 = 0;
+  const int whole = m & ~15;
+  for (int j = m - 1; j >= whole; --j) {
+    const uint32_t t = b[p + j];
+    f0 = f0 * tsm::kMult0 + t;
+    f1 = f1 * tsm::kMult1 + t;
+    f2 = f2 * tsm::kMult2 + t;
+  }
+  for (int c = whole - 16; c >= 0; c -= 16) {
+    uint32_t x[4];
+    words_at(b, p + c, s, x);
+#pragma unroll
+    for (int j = 15; j >= 0; --j) {
+      const uint32_t t = tsm::byte_of(x, j);
+      f0 = f0 * tsm::kMult0 + t;
+      f1 = f1 * tsm::kMult1 + t;
+      f2 = f2 * tsm::kMult2 + t;
+    }
+  }
+}
+
+// The candidates among the kRun starts whose windows begin at b + p, as bits
+// (bit j: start j of the run).  Stages [0, ks) are in shared memory at sbm
+// (ks >= min(k, kBranchFree)), the rest at bitmaps.
+__device__ __forceinline__ uint32_t run_hits(
+    const uint8_t* b, int p, int s, int m, const uint32_t* sbm,
+    const uint32_t* __restrict__ bitmaps, int k, int ks, int words,
+    uint32_t smask, const StageCD& cd, const Rolling& roll) {
+  uint32_t f0, f1, f2;
+  horner_at(b, p, s, m, f0, f1, f2);
+  uint32_t outw[kRun / 4], inw[kRun / 4];   // the bytes leaving, entering
+  words_at(b, p, s, outw);
+  words_at(b, p + m, (s + m) & 15, inw);
+  uint32_t c[kBranchFree], d[kBranchFree];
+#pragma unroll
+  for (int i = 0; i < kBranchFree; ++i) c[i] = cd.c[i], d[i] = cd.d[i];
+  uint32_t hits = 0;
+#pragma unroll
+  for (int j = 0; j < kRun; ++j) {
+    const uint32_t a0 = f0 & 0xFFFFu, a1 = f1 & 0xFFFFu, a2 = f2 & 0xFFFFu;
+    // the first stages for every start, without a branch; the rest for the
+    // starts that pass them
+    uint32_t ok = bit_of(sbm, (a0 + c[0] * a1 + d[0] * a2) & smask);
+#pragma unroll
+    for (int i = 1; i < kBranchFree; ++i)
+      if (k > i)
+        ok &= bit_of(sbm + i * words, (a0 + c[i] * a1 + d[i] * a2) & smask);
+    if (ok && k > kBranchFree) {
+      ok = tsm::stages_hit_shared(a0, a1, a2, sbm + kBranchFree * words, cd,
+                                  kBranchFree, ks, words, smask);
+      if (ok && ks < k)
+        ok = tsm::stages_hit({a0, a1, a2}, bitmaps, cd, ks, k, words, smask);
+    }
+    hits |= ok << j;
+    if (j + 1 < kRun)
+      tsm::roll_fps(roll, tsm::byte_of(outw, j), tsm::byte_of(inw, j), f0,
+                    f1, f2);
+  }
+  return hits;
+}
+
+// Four bits of a hit mask as four bytes of 0 or 1 (the bits land on bits 0,
+// 8, 16 and 24, with no carries between them).
+__device__ __forceinline__ uint32_t spread4(uint32_t bits) {
+  return ((bits & 0xFu) * 0x00204081u) & 0x01010101u;
+}
+
+// text: the 16-byte aligned address at or below the view, whose start count
+// is n_starts and whose first byte is text[shift]; n: the view's length plus
+// shift.  Mask mode writes mask (n_out = R*128 entries), slots mode pos and
+// counts (one entry per tile).
+template <bool kSlotsMode>
+__global__ void __launch_bounds__(kThreads)
+filter_kernel(const uint8_t* __restrict__ text, long long n, int shift, int m,
+              long long n_starts, const uint32_t* __restrict__ bitmaps, int k,
+              int ks, int words, uint32_t smask, StageCD cd, Rolling roll,
+              int8_t* __restrict__ mask, long long n_out,
+              int* __restrict__ pos, int* __restrict__ counts,
+              long long tiles, int bm_bytes) {
+  extern __shared__ uint4 smem[];
+  __shared__ int wsum[kWarps];                  // slots mode: warp totals
+  uint32_t* sbm = reinterpret_cast<uint32_t*>(smem);   // ks * words
+  uint8_t* bufs = reinterpret_cast<uint8_t*>(smem) + bm_bytes;
+  const int blen = buf_bytes(m);
+  for (int i = threadIdx.x; i < ks * words; i += kThreads)
+    sbm[i] = __ldg(bitmaps + i);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int off = threadIdx.x * kRun;            // the run's first start
+
+  long long tile = blockIdx.x;
+  tsm::stage_tile<kThreads>(bufs, text, n, tile * kTile, blen, true);
+  tsm::cp_async_commit();
+  for (int it = 0; tile < tiles; ++it, tile += gridDim.x) {
+    const long long next = tile + gridDim.x;
+    if (next < tiles)
+      tsm::stage_tile<kThreads>(bufs + ((it + 1) & 1) * blen, text, n,
+                                next * kTile, blen, true);
+    tsm::cp_async_commit();
+    tsm::cp_async_wait_prev();
+    __syncthreads();
+
+    const long long i0 = tile * kTile + off;
+    uint32_t hits = 0;
+    if (i0 < n_starts) {
+      hits = run_hits(bufs + (it & 1) * blen, shift + off, shift, m, sbm,
+                      bitmaps, k, ks, words, smask, cd, roll);
+      const long long valid = n_starts - i0;
+      if (valid < kRun) hits &= (1u << valid) - 1u;
+    }
+    if constexpr (!kSlotsMode) {
+      if (i0 < n_out) {                  // n_out is a multiple of kRun
+        uint4* o = reinterpret_cast<uint4*>(mask + i0);
+        o[0] = make_uint4(spread4(hits), spread4(hits >> 4),
+                          spread4(hits >> 8), spread4(hits >> 12));
+        o[1] = make_uint4(spread4(hits >> 16), spread4(hits >> 20),
+                          spread4(hits >> 24), spread4(hits >> 28));
+      }
+    } else {
+      // rank the candidates in position order: a scan of the runs' counts
+      // within the warp, then the totals of the warps before it
+      const int cnt = __popc(hits);
+      int incl = cnt;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, incl, d);
+        if (lane >= d) incl += y;
+      }
+      if (lane == 31) wsum[warp] = incl;
+      __syncthreads();
+      int before = 0, total = 0;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        const int x = wsum[w];
+        total += x;
+        before += w < warp ? x : 0;
+      }
+      int* out = pos + tile * kSlots;
+      int rank = before + incl - cnt;
+      for (uint32_t h = hits; h && rank < kSlots; h &= h - 1, ++rank)
+        out[rank] = (int)(i0 + __ffs(h) - 1);
+      if ((int)threadIdx.x >= total && threadIdx.x < kSlots)
+        out[threadIdx.x] = -1;
+      if (threadIdx.x == 0) counts[tile] = total;
+    }
+    __syncthreads();                  // buffer and wsum free for reuse
+  }
+}
+
+// Both modes: the aligned address below the text, the stages that go to
+// shared memory, and the launch.
+template <bool kSlotsMode>
+int run(const void* text, long long n, int m, const void* bitmaps, int k,
+        int stage_bits, const void* cd, int8_t* mask, long long n_out,
+        int* pos, int* counts, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const long long n_starts = n - m + 1;
+  const long long tiles = (n_starts + kTile - 1) / kTile;
+  const int words = stage_bits / 32;
+  // as many stages in shared memory as keep the block within kSmemTarget,
+  // and the ones tested without a branch in any case
+  const long long bufs = 2LL * buf_bytes(m);
+  long long ks = (kSmemTarget - bufs) / (words * 4LL);
+  if (ks < kBranchFree) ks = kBranchFree;
+  if (ks > k) ks = k;
+  const int bm_bytes = (int)((ks * words * 4 + 15) / 16 * 16);
+  const int shift = (int)((uintptr_t)text & 15);
+  const size_t smem = (size_t)bm_bytes + (size_t)bufs;
+  const auto kernel = filter_kernel<kSlotsMode>;
+  int grid = 0;
+  err = tsm::persistent_grid(kernel, kThreads, smem, tiles, device, &grid);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const uint8_t*)text - shift, n + shift, shift, m, n_starts,
+      (const uint32_t*)bitmaps, k, (int)ks, words, (uint32_t)(stage_bits - 1),
+      tsm::load_cd(cd, k), Rolling::make(m), mask, n_out, pos, counts, tiles,
+      bm_bytes);
+  return (int)cudaGetLastError();
 }
 
 bool valid_args(int m, int k, int stage_bits, long long n) {
@@ -122,24 +309,17 @@ bool valid_args(int m, int k, int stage_bits, long long n) {
 
 // bitmaps: k stages of stage_bits bits each, contiguous int32 words.
 // cd: host array of 2*k uint32, (C_0, D_0, C_1, D_1, ...).
-// mask: (rows, 128) int8 with rows = ceil((n-m+1)/128); every entry written.
+// mask: (rows, 128) int8 with rows = ceil((n-m+1)/128), 16-byte aligned;
+// every entry written.
 extern "C" int tsm_filter_mask(const void* text, long long n, int m,
                                const void* bitmaps, int k, int stage_bits,
                                const void* cd, void* mask, long long rows,
                                int device, void* stream) {
-  if (!valid_args(m, k, stage_bits, n)) return (int)cudaErrorInvalidValue;
-  long long n_starts = n - m + 1;
-  if (rows != (n_starts + 127) / 128) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  long long n_out = rows * 128;
-  long long grid = (n_out + kMaskTile - 1) / kMaskTile;
-  filter_mask_kernel<<<(unsigned)grid, kThreads, (size_t)(kMaskTile + m - 1),
-                       (cudaStream_t)stream>>>(
-      (const uint8_t*)text, n, m, n_starts, n_out, (const uint32_t*)bitmaps,
-      k, stage_bits / 32, (uint32_t)(stage_bits - 1), tsm::load_cd(cd, k),
-      (int8_t*)mask);
-  return (int)cudaGetLastError();
+  if (!valid_args(m, k, stage_bits, n) || ((uintptr_t)mask & 15))
+    return (int)cudaErrorInvalidValue;
+  if (rows != (n - m + 1 + 127) / 128) return (int)cudaErrorInvalidValue;
+  return run<false>(text, n, m, bitmaps, k, stage_bits, cd, (int8_t*)mask,
+                    rows * 128, nullptr, nullptr, device, stream);
 }
 
 // pos: (n_sub, 16) int32 and counts: (n_sub,) int32, n_sub =
@@ -149,14 +329,8 @@ extern "C" int tsm_filter_slots(const void* text, long long n, int m,
                                 const void* cd, void* pos, void* counts,
                                 long long n_sub, int device, void* stream) {
   if (!valid_args(m, k, stage_bits, n)) return (int)cudaErrorInvalidValue;
-  long long n_starts = n - m + 1;
-  if (n_sub != (n_starts + kSub - 1) / kSub) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  filter_slots_kernel<<<(unsigned)n_sub, kThreads, (size_t)(kSub + m - 1),
-                        (cudaStream_t)stream>>>(
-      (const uint8_t*)text, n, m, n_starts, (const uint32_t*)bitmaps, k,
-      stage_bits / 32, (uint32_t)(stage_bits - 1), tsm::load_cd(cd, k),
-      (int*)pos, (int*)counts);
-  return (int)cudaGetLastError();
+  if (n_sub != (n - m + 1 + kSub - 1) / kSub)
+    return (int)cudaErrorInvalidValue;
+  return run<true>(text, n, m, bitmaps, k, stage_bits, cd, nullptr, 0,
+                   (int*)pos, (int*)counts, device, stream);
 }

@@ -15,14 +15,15 @@
 //
 // Two ways to get the fingerprints:
 //   - base_fps: Horner's rule over one window, 3m multiply-adds per start
-//     (filter.cu, stages.cu);
+//     (stages.cu; cascade.cu's phase 2 for a run's later survivors);
 //   - Rolling: the multipliers are odd, so invertible mod 2^32, and
 //         fp(i+1) = (fp(i) - t[i]) * M^-1 + t[i+m] * M^(m-1)
 //     holds exactly in uint32.  A thread runs Horner once for the first
 //     start of its run of consecutive starts (horner_fps, over a 16-byte
 //     aligned window in shared memory, 16 bytes per load) and rolls the rest
 //     in O(1): a subtract, a multiply and a multiply-add per fingerprint
-//     (cascade.cu).  Rolling::make computes M^-1 and M^(m-1) on the host.
+//     (cascade.cu, filter.cu).  Rolling::make computes M^-1 and M^(m-1) on
+//     the host.
 // Bitmaps are read through the read-only cache (__ldg), or from shared
 // memory where a kernel stages them (stages_hit_shared).
 

@@ -1,7 +1,7 @@
 // Shared device code of the persistent, double-buffered kernels
-// (cascade.cu, exact_count.cu's unguarded count): staging a tile of text in
-// shared memory with 16-byte cp.async copies, so that the next tile's load
-// overlaps this tile's work, and the host-side grid size.
+// (cascade.cu, filter.cu, exact_count.cu's unguarded count): staging a tile
+// of text in shared memory with 16-byte cp.async copies, so that the next
+// tile's load overlaps this tile's work, and the host-side grid size.
 //
 // A block walks tiles blockIdx.x, blockIdx.x + gridDim.x, ... of one fixed
 // number of bytes.  Each iteration issues the NEXT tile's copies into the
@@ -15,7 +15,8 @@
 // The copies go to L2 only (.cg): the text is read once.  A chunk past the
 // text's end is zero-filled by the copy itself (src-size < 16).  A text
 // whose address is not 16-byte aligned (a view at an odd offset) is staged
-// byte by byte instead: same bytes, no overlap.
+// byte by byte instead: same bytes, no overlap (filter.cu instead stages
+// from the aligned address below such a text and offsets its tile).
 
 #pragma once
 

@@ -123,9 +123,12 @@ def make_engine(name: str, patterns: PatternSet, *, device="cuda",
     eng = make_engine_from_tables(name, build_tables(name, patterns,
                                                      device=dev),
                                   device=dev, lanes=lanes, q=q, tile=tile)
+    codes, sigma = _codes(patterns)
     if fastpath and name != "fast":
-        codes, sigma = _codes(patterns)
         attach_fastpath(eng, name, codes, sigma)
+    # for matches() / count_per_pattern() (ops.common.attr_scanner)
+    eng.pattern_codes = np.asarray(codes, np.uint8)
+    eng.pattern_sigma = sigma
     return eng
 
 

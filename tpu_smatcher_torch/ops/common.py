@@ -104,30 +104,41 @@ def fastpath_positions(scanner, text) -> np.ndarray:
     return fp.positions(text)
 
 
-def _fallback_fast(scanner, what: str):
-    """The fast path's fallback FastScanner over the engine's own tables,
-    which attributes matches on the device; without a fast path there is
-    no device attribution, and the port has no host enumerator."""
-    fp = active_fastpath(scanner)
-    if fp is None:
-        raise NotImplementedError(
-            f"{what}() requires the engine's fast path (make_engine with "
-            "fastpath=True and m <= MAX_KERNEL_M)")
-    return fp._fallback_scanner()
+def attr_scanner(scanner, what: str):
+    """The FastScanner that attributes the engine's matches on its device:
+    the fast path's fallback (the same tables, any m), else one over
+    build_fast of the engine's pattern codes (make_engine keeps them),
+    built at first use.  Patterns longer than the kernels take run its
+    plain pieces (fast._positions_piece_plain), where the JAX package
+    enumerates on the host."""
+    fp = scanner.fast_path
+    if fp is not None:
+        return fp._fallback_scanner()
+    fs = getattr(scanner, "_attr_fast", None)
+    if fs is None:
+        from tpu_smatcher_torch.ops.fast import FastScanner, build_fast
+        codes = getattr(scanner, "pattern_codes", None)
+        if codes is None:
+            raise ValueError(
+                f"{what}() needs the engine's pattern codes: build it with "
+                "make_engine, or set scanner.pattern_codes and "
+                "scanner.pattern_sigma")
+        fs = scanner._attr_fast = FastScanner(build_fast(
+            codes, scanner.pattern_sigma, device=scanner.device))
+    return fs
 
 
 def scanner_matches(scanner, text):
     """(positions, pattern_ids): every match start and the ORIGINAL id of
     its pattern (smallest id on duplicates), attributed on the device by
-    the fast path's fallback FastScanner (same tables, same match set)."""
-    return _fallback_fast(scanner, "matches").matches(text)
+    attr_scanner (same match set as the engine's count)."""
+    return attr_scanner(scanner, "matches").matches(text)
 
 
 def scanner_count_per_pattern(scanner, text) -> np.ndarray:
     """(p,) int64 match-start counts per original pattern id, summed on the
-    device by the fast path's fallback FastScanner; they sum to
-    count(text)."""
-    return _fallback_fast(scanner, "count_per_pattern").count_per_pattern(
+    device by attr_scanner; they sum to count(text)."""
+    return attr_scanner(scanner, "count_per_pattern").count_per_pattern(
         text)
 
 

@@ -28,6 +28,13 @@ filter stage after a false-candidate overflow (_k_extra), or the row-dense
 mask pass for every later scan after a match-driven one (_match_dense).
 fast_count_core, the tiled plain-torch scan, is the counterpart of the JAX
 package's xla backend and runs patterns longer than the kernels take.
+
+Text is specified encoded in the alphabet (bytes < sigma).  On a byte >=
+sigma the exact tier's unguarded count ORs the shifted bytes into the
+window id (ops/keys.wid_keys), as the JAX package's xla path does, where
+its Pallas kernel sums them: such a window may count differently there,
+and neither count need equal the windows that equal a pattern.  The main
+path adds no guard; core() and exact_count(guard=True) drop such windows.
 """
 
 from __future__ import annotations
