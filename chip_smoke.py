@@ -16,7 +16,11 @@
    mask row and tile at m = 1, 31 and 4097, sigma = 4 and 256, on views
    at every address mod 16, on 4096- to 2^18-bit stages (k = 1 and 32)
    in shared memory and past it, and on a launch above 48 KB of shared
-   memory after a smaller one;
+   memory after a smaller one; the stage chain (stages, stages_flat) on
+   every engine's chain at sigma 2 to 256, and on start counts around its
+   run, mask row and tile, views at every address mod 16, dirty runs, m =
+   3 to 4097 (sog at 34), 32 fp stages of 2^17 and 2^18 bits, chains
+   outside the engines' and launches above 48 KB around a smaller one;
 4. drives the main paths through make_fast / FastScanner, each with the
    launch counters set to 0 just before it and read just after:
    - bench.py's five tiers on its 256 MiB DNA corpus (seed 7): each count
@@ -47,8 +51,11 @@
    corpus, the guarded count over the padded one), and the positions phase
    is profiled per path.  The launches are also weighted by the size they
    ran at, and the filter launches at addresses that are not 16-byte
-   aligned (views) counted.  A bound charges the work the function needs
-   (rolling fingerprints and window ids), not what the kernels do today.
+   aligned (views) counted; each timed stage chain prints the fraction of
+   starts passing each set of its stages.  A bound charges the work the
+   function needs (rolling fingerprints and window ids; a stage chain's
+   stages in their cheapest order), not what the kernels do today.  Each profile line holds the port's kernel events
+   against their launches.
 
 Any failed check raises: the exit code is then non-zero and no result
 line is printed.  The last line is {"ok": true, "device": {...}}.
@@ -56,6 +63,7 @@ line is printed.  The last line is {"ok": true, "device": {...}}.
 
 import contextlib
 import functools
+import itertools
 import json
 import statistics
 import subprocess
@@ -132,8 +140,7 @@ INT32_OPS_PER_S = 33.5e12
 #: kernels do.  The fingerprint multipliers are odd, so invertible mod
 #: 2^16, and a fingerprint rolls from one start to the next in O(1):
 #: fp(i) = fp(i+1) * M + t[i] - t[i+m] * M^m, two multiply-adds for each of
-#: the three (the cascade and filter.cu roll; stages.cu still runs Horner's
-#: rule, 3m multiply-adds).
+#: the three (the cascade, filter.cu and stages.cu roll them).
 ROLLING_FP_OPS = 3 * 2 * 2
 #: one stage test: key = f0 + C*f1 + D*f2 (2 multiply-adds), the mask, the
 #: word index and the bit test
@@ -146,16 +153,32 @@ EXACT_START_OPS = 8
 #: distance with m)
 GUARD_START_OPS = 3
 #: the engines' value and bitmap stages, per start: (the rolling update
-#: every start needs, the test of a start that reaches the stage)
+#: that, where the stage rolls, every start needs; the test of a start that
+#: reaches the stage)
 #:   wid  the window id rolls (shift, or, mask); the bit test (word index,
 #:        bit index, shift, and, and into the hit)
 #:   wm   the 3-char hash rolls (multiply-add, mask); the table read and the
 #:        compare with 0
 #:   sog  the shift-or register E = (E << 1) | T[g] with the gram g rolling
 #:        (multiply-add, mask, the table read, shift, or); the test of
-#:        E's check bit (shift, and) — O(1), where the kernel does m-2
-#:        lookups per start
+#:        E's check bit (shift, and)
 STAGE_OPS = {"wid": (3, 5), "wm": (3, 2), "sog": (6, 2)}
+
+
+def start_key_ops(kind, params, m):
+    """A stage's key for one start computed from its window's bytes, the
+    alternative to its rolling update where few starts reach the stage:
+    wid's d bytes (shift, or each), wm's hash (two multiply-adds), sog's
+    m-2 grams (each its index by two multiply-adds, the table read, its bit
+    by shift and and, the or into the start's hit), and three Horner
+    fingerprints over the m bytes (a multiply-add per byte each)."""
+    if kind == "wid":
+        return 2 * params[1]
+    if kind == "wm":
+        return 4
+    if kind == "sog":
+        return 8 * (m - 2)
+    return 6 * m
 
 
 def log(msg):
@@ -507,14 +530,16 @@ class Checks:
         assert int(counts.sum()) == int(mask.sum()), desc
         return counts
 
-    def stages(self, label, text, chain, tables, m, sigma):
+    def stages(self, label, text, chain, tables, m, sigma, quiet=False):
         """The stage-chain kernel against stages_plain in all three modes,
-        guard on and off (and the flat call where the chain allows it)."""
+        guard on and off (and the flat call where the chain allows it), on
+        text (numpy, or a tensor on the card: a view at any address).
+        Returns the candidates."""
         import torch
         from tpu_smatcher_torch.ops import cuda_engines as ce
-        t = torch.from_numpy(text).cuda()
+        t = text if torch.is_tensor(text) else torch.from_numpy(text).cuda()
         flat_ok = all(k in ("wid", "fpset") for k, _ in chain)
-        errs = {}
+        errs, cands = {}, 0
         for mode in ("count", "mask", "slots"):
             for guard in (False, True):
                 flat = flat_ok and not guard
@@ -526,9 +551,12 @@ class Checks:
                 errs[name, mode, guard] = _diff(got, want)
                 self._err(name, errs[name, mode, guard],
                           f"{label} {mode} guard={guard}")
-        log(f"  stages {label}: n={len(text)} chain "
-            f"{[k for k, _ in chain]}, max_abs_err {max(errs.values())} "
-            f"over {len(errs)} (mode, guard) calls")
+                cands += int(want) if mode == "count" else 0
+        if not quiet:
+            log(f"  stages {label}: n={int(t.shape[0])} chain "
+                f"{[k for k, _ in chain]}, max_abs_err {max(errs.values())} "
+                f"over {len(errs)} (mode, guard) calls")
+        return cands
 
 
 def _diff(got, want):
@@ -569,25 +597,56 @@ def stage_checks(ck, case):
                     chain, tables, _ = fp._stages(nn)
                     ck.stages(f"{name} sigma={sigma} m={m} n={nn}",
                               text[:nn].copy(), chain, tables, m, sigma)
+    stage_edge_checks(ck)
 
 
-def edge_starts(run, tile):
-    """Start counts around a kernel's run and tile."""
-    return sorted({run - 1, run, run + 1, tile - 1, tile, tile + 1,
-                   2 * tile + run + 1})
-
-
-def random_stages(k, stage_bits, fill, seed):
-    """(k, stage_bits/32) int32 stage bitmaps, each bit set with
-    probability fill."""
-    import numpy as np
-    bits = np.random.default_rng(seed).random((k, stage_bits)) < fill
-    return np.packbits(bits, axis=1, bitorder="little").view("<i4")
+def stage_edge_checks(ck):
+    """stages / stages_flat against stages_plain on kernel_cases' stage-chain
+    edge cases (those of tests/test_torch_cuda.py): start counts around the
+    kernel's run, a mask row and its tile, on views at every address mod
+    16, with bytes >= sigma planted (the wid stage's per-start runs,
+    lookups past the value tables, windows the guard drops) and the guard
+    at sigma = 256, for every chain kind EngineFastPath builds, sog at m =
+    34 and wid + fpset at m = 4097; 32 fp stages of 2^17 and 2^18 bits
+    (past shared memory) alone and behind each stage 0; chains outside
+    EngineFastPath's (the kernel's generic instantiation); and launches
+    above 48 KB of shared memory around a smaller one."""
+    from tpu_smatcher_torch import kernel_cases as kc
+    log("kernel vs plain (stages, stages_flat: runs, rows, tiles, addresses, "
+        "dirty runs, m = 3 to 4097, wide fp stages, generic chains, "
+        "tolerance 0):")
+    for sigma, m, kind in kc.STAGE_EDGE_CASES:
+        views, chain, tables = kc.stage_edge_case(sigma, m, kind, "cuda")
+        cands = sum(ck.stages(f"{kind} sigma={sigma} m={m}", v, chain,
+                              tables, m, sigma, quiet=True) for v in views)
+        assert cands, f"stages edges {kind} sigma={sigma} m={m}"
+        log(f"  stages {kind} sigma={sigma} m={m} chain "
+            f"{[k for k, _ in chain]}: {len(views)} start counts at "
+            f"addresses 0..15 mod 16, every mode, guard on and off: "
+            f"{cands} candidates, max_abs_err 0")
+    for stage_bits in (131072, 262144):
+        for t, chain, tables, m in kc.wide_fp_cases(stage_bits, "cuda"):
+            ck.stages(f"{[k for k, _ in chain]} with 32 x {stage_bits}-bit "
+                      f"fp stages m={m}", t, chain, tables, m, 4, quiet=True)
+        log(f"  stages 32 x {stage_bits}-bit fp stages past shared memory, "
+            f"alone and behind wid / wm / sog at m = 32 and 4097 (aligned "
+            f"and at address 3 mod 16): max_abs_err 0")
+    for sigma, m in kc.GENERIC_CASES:
+        t, chains = kc.generic_case(sigma, m, "cuda")
+        for chain, tables in chains:
+            ck.stages(f"generic sigma={sigma} m={m}", t, chain, tables, m,
+                      sigma)
+    for t, chain, tables, m in kc.smaller_launch_cases("cuda"):
+        ck.stages("around a smaller launch", t, chain, tables, m, 4,
+                  quiet=True)
+    log("  stages launches above 48 KB of shared memory (97 KB, 85 KB), "
+        "then one below (34 KB), then 97 KB again: max_abs_err 0")
 
 
 def kernel_checks():
     import numpy as np
     from tpu_smatcher_torch.core import datagen
+    from tpu_smatcher_torch.kernel_cases import edge_starts, random_stages
     from tpu_smatcher_torch.core.alphabet import Alphabet
     from tpu_smatcher_torch.core.patterns import PatternSet
 
@@ -693,6 +752,7 @@ def filter_edge_checks(ck):
     the middle one smaller."""
     import numpy as np
     import torch
+    from tpu_smatcher_torch.kernel_cases import edge_starts, random_stages
     log("kernel vs plain (filter_mask, filter_slots: runs, rows, tiles, "
         "addresses, stage widths, tolerance 0):")
     rng = np.random.default_rng(21)
@@ -1164,36 +1224,65 @@ def path_times(card, label, eng, t, scan):
     return k_ms
 
 
+#: the __global__ functions of tpu_smatcher_torch/csrc
+KERNEL_SYMBOLS = ("exact_count_kernel", "exact_count_guard_kernel",
+                  "exact_mask_kernel", "cascade_kernel", "filter_kernel",
+                  "words_kernel", "stages_kernel")
+#: profiler sessions profile() tries for one with every port kernel's
+#: record: torch.profiler drops kernel records now and then in a long run
+PROFILE_TRIES = 5
+
+
 def profile(card, label, fn, reps=3):
     """Per scan: wall time (host clock), device busy time (the sum of the
     device's kernel and copy events), the share of the wall the device
     idles, and the three device events that take most, each with the
-    number of its events the profiler recorded over the reps (a kernel
-    the scan launches once that shows fewer than reps events lost some
-    of its records)."""
+    number of its events the profiler recorded over the reps.  Each
+    session traces reps scans after a warm-up step of reps untraced ones
+    (the profiler's schedule).  The port's kernel events are held against
+    their launch counts: a session that lost a record is run again, up to
+    PROFILE_TRIES sessions, and the line says LOST RECORDS if none kept
+    them all (its busy time and idle share are then not measured)."""
     import collections
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
+    from tpu_smatcher_torch.ops import cuda_filter as cf
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
-                                            ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / reps
-    dev, events = collections.Counter(), collections.Counter()
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            dev[e.name] += e.time_range.elapsed_us() / 1e3 / reps
-            events[e.name] += 1
+    for session in range(1, PROFILE_TRIES + 1):
+        with torch.profiler.profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                schedule=torch.profiler.schedule(wait=0, warmup=1, active=1,
+                                                 repeat=1)) as prof:
+            for step in (0, 1):
+                before = dict(cf.LAUNCHES)
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3 / reps
+                prof.step()
+        launches = sum(v - before[k] for k, v in cf.LAUNCHES.items())
+        dev, events = collections.Counter(), collections.Counter()
+        for e in prof.events():
+            # the schedule's step annotation spans the step on the device
+            if e.device_type == DeviceType.CUDA and \
+                    not e.name.startswith("ProfilerStep"):
+                dev[e.name] += e.time_range.elapsed_us() / 1e3 / reps
+                events[e.name] += 1
+        ours = sum(n for name, n in events.items()
+                   if any(f"::{k}" in name for k in KERNEL_SYMBOLS))
+        if ours == launches:
+            break
     busy = sum(dev.values())
     top = ", ".join(f"{name[:48]} {ms:.3f} ms ({events[name]} events)"
                     for name, ms in dev.most_common(3))
+    lost = "" if ours == launches else "; LOST RECORDS"
     log(f"[{card}] {label} profile: wall {wall:.3f} ms/scan, device busy "
-        f"{busy:.3f} ms, idle share {1 - busy / wall:.3f}; top: {top}")
+        f"{busy:.3f} ms, idle share {1 - busy / wall:.3f}; port kernels "
+        f"{ours} events of {launches} launches (session {session}){lost}; "
+        f"top: {top}")
 
 
 def kernel_time(card, ck, label, name, kern, plain, bnd, library=None):
@@ -1356,30 +1445,55 @@ def record_stages(fn):
     return calls
 
 
-def stages_bound(text, chain, tables, kw, ft):
-    """bound() of one stage-chain call: the text read once, the tables and
-    the output; per start, each stage's rolling update (every start) and
-    test (the starts that reach it: the fraction passing the stages before
-    it, counted by the kernel on this text), the guard, the count's sum."""
+def pass_fractions(text, chain, tables, kw):
+    """The fraction of the starts of text that pass each set of the chain's
+    stages (the hit is an AND, so a set has no order), counted by the
+    kernel: {frozenset of stage indices: fraction}."""
     from tpu_smatcher_torch.ops import cuda_engines as ce
+    n_st = int(text.shape[0]) - kw["m"] + 1
+    out = {frozenset(): 1.0}
+    for r in range(1, len(chain) + 1):
+        for idx in itertools.combinations(range(len(chain)), r):
+            c = ce.stages(text, [chain[i] for i in idx],
+                          [tables[i] for i in idx], m=kw["m"],
+                          sigma=kw["sigma"], mode="count")
+            out[frozenset(idx)] = int(c) / n_st
+    return out
+
+
+def stages_bound(text, chain, tables, kw, ft, fractions):
+    """(bound(), the cheapest order) of one stage-chain call: the text read
+    once, the tables and the output; per start, the guard, the count's sum
+    and the stages in the order that needs the fewest operations (the hit
+    is an AND).  A stage costs its test at the starts that reach it (the
+    fraction passing the stages before it, from pass_fractions) and either
+    its rolling update at every start or its key computed for each start
+    that reaches it (start_key_ops), whichever is less."""
     n, m = int(text.shape[0]), kw["m"]
     n_st = n - m + 1
     nbytes = n + sum(t.numel() * 4 for t in tables) + {
         "count": 4, "mask": -(-n_st // 128) * 128,
         "slots": -(-n_st // 16384) * 17 * 4}[kw["mode"]]
-    ops, reach = 0.0, 1.0
-    for i, (kind, params) in enumerate(chain):
-        if i:
-            reach = int(ce.stages(text, chain[:i], tables[:i], m=m,
-                                  sigma=kw["sigma"], mode="count")) / n_st
+
+    def cost(kind, params, reach):
         if kind == "fpset":
-            roll, test = ROLLING_FP_OPS, STAGE_TEST_OPS * stage_tests(
-                ft, params[0])
+            roll = ROLLING_FP_OPS
+            test = STAGE_TEST_OPS * stage_tests(ft, params[0])
         else:
             roll, test = STAGE_OPS[kind]
-        ops += roll + reach * test
+        return reach * test + min(roll, reach * start_key_ops(kind, params,
+                                                              m))
+
+    orders = []
+    for order in itertools.permutations(range(len(chain))):
+        ops, before = 0.0, frozenset()
+        for i in order:
+            ops += cost(*chain[i], fractions[before])
+            before |= {i}
+        orders.append((ops, order))
+    ops, order = min(orders)
     ops += GUARD_START_OPS * kw.get("guard", False) + (kw["mode"] == "count")
-    return bound(nbytes, n_st * ops)
+    return bound(nbytes, n_st * ops), [chain[i][0] for i in order]
 
 
 def engines_timings(card, ck, tdev, engines, tier_ms):
@@ -1414,12 +1528,19 @@ def engines_timings(card, ck, tdev, engines, tier_ms):
             calls += record_stages(lambda: eng.positions(tdev[:N_GATE]))
         for text, chain, tables, kw in calls:
             kname = "stages_flat" if kw.get("flat") else "stages"
+            label = (f"engine {key[0]} m={key[1]} {kw['mode']} "
+                     f"{'+'.join(k for k, _ in chain)} n={int(text.shape[0])}")
+            fractions = pass_fractions(text, chain, tables, kw)
+            bnd, order = stages_bound(text, chain, tables, kw,
+                                      eng.fast_path.ft, fractions)
+            log(f"{label}: starts passing each set of stages: " + ", ".join(
+                f"{'+'.join(chain[i][0] for i in sorted(st))} {f:.6f}"
+                for st, f in fractions.items() if st)
+                + f"; the bound's order: {' then '.join(order)}")
             res = kernel_time(
-                card, ck, f"engine {key[0]} m={key[1]} {kw['mode']} "
-                f"{'+'.join(k for k, _ in chain)} n={int(text.shape[0])}",
-                kname, lambda: ce.stages(text, chain, tables, **kw),
-                lambda: ce.stages_plain(text, chain, tables, **kw),
-                stages_bound(text, chain, tables, kw, eng.fast_path.ft))
+                card, ck, label, kname,
+                lambda: ce.stages(text, chain, tables, **kw),
+                lambda: ce.stages_plain(text, chain, tables, **kw), bnd)
             scale = N_FULL / int(text.shape[0])     # per 256 MiB
             chain_times.setdefault(chain_kind(chain, kw), (
                 res["ms"] * scale, res["bound_ms"] * scale))

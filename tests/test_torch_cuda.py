@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from tpu_smatcher_torch import kernel_cases as kc
 from tpu_smatcher_torch import make_engine, make_fast
 from tpu_smatcher_torch.core import datagen
 from tpu_smatcher_torch.ops import cuda_engines as ce
@@ -514,6 +515,67 @@ def test_stages_kernel_matches_plain(cuda, sigma, m):
                     for g, w in zip(got, want, strict=True):
                         assert g.shape == w.shape and torch.equal(g, w), (
                             name, n, mode, guard)
+
+
+def _check_stages(t, chain, tables, m, sigma):
+    """stages() == stages_plain on t in every mode, guard on and off (the
+    flat call where the chain allows it); returns the candidates."""
+    flat_ok = all(k in ("wid", "fpset") for k, _ in chain)
+    cands = 0
+    for mode in ("count", "mask", "slots"):
+        for guard in (False, True):
+            kw = dict(m=m, sigma=sigma, mode=mode, guard=guard)
+            got = ce.stages(t, chain, tables, flat=flat_ok and not guard,
+                            **kw)
+            torch.cuda.synchronize()
+            want = ce.stages_plain(t, chain, tables, **kw)
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            for g, w in zip(got, want, strict=True):
+                assert g.shape == w.shape and torch.equal(g, w), (
+                    [k for k, _ in chain], int(t.shape[0]), mode, guard)
+            if mode == "count":
+                cands += int(want[0])
+    return cands
+
+
+@pytest.mark.parametrize("sigma,m,kind", kc.STAGE_EDGE_CASES)
+def test_stages_kernel_at_edges_matches_plain(cuda, sigma, m, kind):
+    """The stage-chain kernel equals stages_plain in every mode, guard on
+    and off, on start counts around its run, a mask row and its tile, on
+    views at every address mod 16 (staged from the aligned address below
+    them), with bytes >= sigma planted (runs that take the wid stage's
+    per-start path, lookups past the value tables, windows the guard
+    drops)."""
+    views, chain, tables = kc.stage_edge_case(sigma, m, kind, cuda)
+    assert sum(_check_stages(v, chain, tables, m, sigma) for v in views)
+
+
+@pytest.mark.parametrize("stage_bits", [131072, 262144])
+def test_stages_kernel_on_wide_fp_stages_matches_plain(cuda, stage_bits):
+    """32 fingerprint stages of 2^17 or 2^18 bits (past shared memory)
+    alone and behind each stage 0 (prefix wid, wm, sog), at m = 32 and
+    4097, aligned and at address 3 mod 16."""
+    for t, chain, tables, m in kc.wide_fp_cases(stage_bits, cuda):
+        _check_stages(t, chain, tables, m, 4)
+
+
+@pytest.mark.parametrize("sigma,m", kc.GENERIC_CASES)
+def test_stages_kernel_generic_chains_match_plain(cuda, sigma, m):
+    """Chains outside EngineFastPath's (a value stage alone, two value
+    stages, the fp stage first, a bitmap smaller than the id space, three
+    wid stages) run in the kernel's generic instantiation and equal
+    stages_plain, at an odd address."""
+    t, chains = kc.generic_case(sigma, m, cuda)
+    for chain, tables in chains:
+        _check_stages(t, chain, tables, m, sigma)
+
+
+def test_stages_kernel_after_a_smaller_large_launch(cuda):
+    """Stage-chain launches above 48 KB of shared memory around smaller
+    ones: each raises the kernel's limit again."""
+    for t, chain, tables, m in kc.smaller_launch_cases(cuda):
+        _check_stages(t, chain, tables, m, 4)
 
 
 #: (sigma, m, engines) of the engine checks on the card: both tiers, every

@@ -156,24 +156,30 @@ def _spread4(bits):
         & np.uint64(0x01010101)
 
 
-def mirror_mask(text, bitmaps, m, cd, shift):
-    """filter.cu's mask mode: every run below R*128 stores its 32 results
-    as eight words of 0/1 bytes (two 16-byte stores)."""
-    n_out = -(-(len(text) - m + 1) // 128) * 128
-    hits = run_hits(text, bitmaps, m, cd, shift, np.arange(0, n_out, RUN))
+def mask_stores(hits):
+    """(runs * 32 / 128, 128) int8: each run's 32 results stored as eight
+    words of 0/1 bytes (two 16-byte stores), the runs in order."""
     words = np.stack([_spread4(hits >> np.uint64(4 * w))
                       for w in range(RUN // 4)], axis=1).astype("<u4")
     return words.view(np.int8).reshape(-1, 128)
 
 
-def mirror_slots(text, bitmaps, m, cd, shift):
-    """filter.cu's slots mode: a sub-block is one tile of 512 runs; a run's
-    rank is the candidates of the warps before it and of the lanes before
-    it in its warp; a run whose rank is below 16 writes its candidates
-    until rank 16."""
-    n_sub = -(-(len(text) - m + 1) // TILE)
-    starts = np.arange(0, n_sub * TILE, RUN)
-    hits = run_hits(text, bitmaps, m, cd, shift, starts)
+def mirror_mask(text, bitmaps, m, cd, shift):
+    """filter.cu's mask mode: every run below R*128 stores its 32 results
+    as eight words of 0/1 bytes (two 16-byte stores)."""
+    n_out = -(-(len(text) - m + 1) // 128) * 128
+    return mask_stores(run_hits(text, bitmaps, m, cd, shift,
+                                np.arange(0, n_out, RUN)))
+
+
+def slot_ranks(hits):
+    """(pos, counts) of sub-blocks of 512 runs each (hits: their 32-bit
+    masks, in order): a run's rank is the candidates of the warps before it
+    and of the lanes before it in its warp; a run whose rank is below 16
+    writes its candidates until rank 16 (tile_pipeline.cuh's
+    rank_run_slots)."""
+    n_sub = len(hits) // THREADS
+    starts = np.arange(n_sub * TILE, step=RUN)
     cnt = np.bitwise_count(hits).astype(np.int64).reshape(n_sub, 16, 32)
     incl = np.cumsum(cnt, axis=2)                  # the warp's shuffle scan
     wsum = incl[..., -1]                           # (n_sub, 16)
@@ -188,6 +194,14 @@ def mirror_slots(text, bitmaps, m, cd, shift):
             h ^= low
             rank += 1
     return pos, wsum.sum(axis=1).astype(np.int32)
+
+
+def mirror_slots(text, bitmaps, m, cd, shift):
+    """filter.cu's slots mode: a sub-block is one tile of 512 runs, ranked
+    by slot_ranks."""
+    n_sub = -(-(len(text) - m + 1) // TILE)
+    return slot_ranks(run_hits(text, bitmaps, m, cd, shift,
+                               np.arange(0, n_sub * TILE, RUN)))
 
 
 def _text(sigma, m, seed):

@@ -14,6 +14,10 @@ import torch
 from tpu_smatcher_torch.core import datagen
 from tpu_smatcher_torch.core.alphabet import Alphabet
 from tpu_smatcher_torch.core.patterns import PatternSet
+# the kernel checks' inputs, shared with chip_smoke.py
+from tpu_smatcher_torch.kernel_cases import (  # noqa: F401
+    edge_starts, engine_chain, generic_chains, make_case, plant_oob,
+    random_stages, sog_table)
 
 # The parity tests run many small torch CPU ops while the other test
 # processes compile JAX programs: one intra-op thread per process keeps them
@@ -30,14 +34,6 @@ CASES = [
     (20, 8, 64, 120_000),    # fp tier
     (128, 8, 32, 120_000),   # fp tier
 ]
-
-
-def make_case(sigma, m, p_size, n, seed):
-    ab = Alphabet.of_size(sigma)
-    text = datagen.generate_text(n, ab, seed=seed)
-    pats = datagen.generate_patterns(text, p_size, m, ab, frac_present=0.6,
-                                     seed=seed + 1)
-    return text, pats
 
 
 def wide_case(frac_present, n=1 << 16, p=3000, m=32, seed=5):
@@ -104,19 +100,3 @@ def assert_tables_equal(jft, tft):
             assert np.array_equal(np.asarray(a), b.cpu().numpy()), f.name
         else:
             assert a == b, (f.name, a, b)
-
-
-def random_stages(k, stage_bits, fill, seed):
-    """(k, stage_bits/32) int32 stage bitmaps, each bit set with
-    probability fill, for kernel tests that need stage counts or widths no
-    pattern set of the test's size builds."""
-    rng = np.random.default_rng(seed)
-    bits = rng.random((k, stage_bits)) < fill
-    return np.packbits(bits, axis=1, bitorder="little").view("<i4")
-
-
-def edge_starts(run, tile):
-    """Start counts around a kernel's run of consecutive starts per thread
-    and its tile of starts per block iteration."""
-    return sorted({run - 1, run, run + 1, tile - 1, tile, tile + 1,
-                   2 * tile + run + 1})

@@ -13,9 +13,16 @@ on one card, in one process, interleaved, on bench.py's 256 MiB DNA corpus
                 prefix, p=10k at 4096-bit stages, its k stages) and on the
                 fp m=32 p=10k positions / matches piece (the whole text, its
                 k stages)
+  stages        the engines' stage chain (tsm_stages) on each engine's own
+                main-path calls: ac m=8 (the exact wid, count mode, the
+                flat call), wm m=8 and sog8 (wm / sog + the exact wid,
+                count), and ac, wm and sog32 at m=32 (stage 0 + the fpset
+                stages: count_async's slots mode and count()'s mask mode),
+                on bench.py's p=10k sets
 
     python3 -m tpu_smatcher_torch.ab_cascade OTHER_CHECKOUT [...] [--reps N]
         [--kernels NAME ...]
+    python3 -m tpu_smatcher_torch.ab_cascade checkout/parent --kernels stages
 
 Each checkout's csrc source of a kernel is built with this checkout's nvcc
 flags and that checkout's headers into this checkout's build/ directory and
@@ -40,13 +47,17 @@ import sys
 KERNELS = {"exact_count": ("exact_count.cu", "tsm_exact_count"),
            "cascade": ("cascade.cu", "tsm_cascade"),
            "filter_slots": ("filter.cu", "tsm_filter_slots"),
-           "filter_mask": ("filter.cu", "tsm_filter_mask")}
+           "filter_mask": ("filter.cu", "tsm_filter_mask"),
+           "stages": ("stages.cu", "tsm_stages")}
 #: bench.py's tiers: (name, m, p)
 TIERS = (("exact", 8, 10_000), ("fp16", 16, 10_000), ("fp", 32, 10_000),
          ("fp32_p30k", 32, 30_000), ("fp32_p100k", 32, 100_000))
 #: the filter kernels' inputs: (name, kernel)
 CELLS = (("slot32", "filter_slots"), ("dense32", "filter_mask"),
          ("saturated", "filter_mask"), ("fp_matches", "filter_mask"))
+#: the stage-chain cells: (engine, m), each on bench.py's p=10k set of its m
+STAGE_CELLS = (("ac", 8), ("wm", 8), ("sog8", 8), ("ac", 32), ("wm", 32),
+               ("sog32", 32))
 MiB = 1 << 20
 
 
@@ -185,6 +196,69 @@ def cell_input(cell, text, t):
     return t, ft, k
 
 
+def stage_calls(text, t, name, m):
+    """The stages() calls of engine `name`'s main paths on t: count_async
+    (count mode at m=8, slots mode at m=32) and, at m=32, count() (mask
+    mode), as (text, chain, tables, kwargs).  The paths run on the plain
+    versions (the same outputs, so the same calls), which keeps this
+    checkout's _build libraries out of the process: only the builds under
+    comparison are loaded."""
+    from tpu_smatcher_torch import make_engine
+    from tpu_smatcher_torch.core import datagen
+    from tpu_smatcher_torch.core.alphabet import Alphabet
+    from tpu_smatcher_torch.ops import cuda_engines as ce
+    from tpu_smatcher_torch.ops import cuda_filter as cf
+    pats = datagen.generate_patterns(text, 10_000, m, Alphabet.dna(),
+                                     frac_present=0.5,
+                                     seed=8 if m == 8 else 8 + m)
+    eng = make_engine(name, pats, device="cuda")
+    calls, real = [], ce.stages
+
+    def spy(text, chain, tables, **kw):
+        calls.append((text, chain, tables, kw))
+        kw = {k: v for k, v in kw.items() if k != "flat"}
+        return ce.stages_plain(text, chain, tables, **kw)
+
+    wrappers = [(cf, w) for w in ("exact_count", "exact_mask", "cascade",
+                                  "filter_slots", "filter_mask",
+                                  "words_view")]
+    saved = [(mod, w, getattr(mod, w)) for mod, w in wrappers]
+    for mod, w, _ in saved:
+        setattr(mod, w, getattr(mod, f"{w}_plain"))
+    ce.stages = spy
+    try:
+        eng.count_async(t).result()
+        if m == 32:
+            eng.count(t)
+    finally:
+        ce.stages = real
+        for mod, w, fn in saved:
+            setattr(mod, w, fn)
+    return calls
+
+
+def stages_launcher(text, chain, tables, kw):
+    """(label, launch(fn) -> outputs) of tsm_stages on one recorded call."""
+    import torch
+    from tpu_smatcher_torch.ops import cuda_engines as ce
+    n, m, mode = int(text.shape[0]), kw["m"], kw["mode"]
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    dev = torch.cuda.current_device()
+    desc, ptrs, cd = ce.chain_args(chain, tables)
+    label = (f"{'+'.join(k for k, _ in chain)} {mode} n={n} m={m}"
+             f"{' guard' if kw.get('guard') else ''}")
+
+    def launch(fn):
+        out0, out1, n_out = ce.stage_outputs(mode, n - m + 1, "cuda")
+        rc = fn(text.data_ptr(), n, m, kw["sigma"], int(kw.get("guard", 0)),
+                ce.MODES[mode], desc, ptrs, len(chain), cd, out0.data_ptr(),
+                None if out1 is None else out1.data_ptr(), n_out, dev,
+                stream)
+        assert rc == 0, f"launch failed: cudaError {rc}"
+        return (out0,) if out1 is None else (out0, out1)
+    return label, launch
+
+
 def time_builds(builds, launch, reps):
     """{label: [ms per rep]}: every build once per rep, in an order that
     rotates from rep to rep, after one warm-up rep."""
@@ -267,6 +341,11 @@ def main(argv=None) -> int:
         shape, launch = filter_launcher(tc, ft, k, kernel)
         compare(builds[kernel], f"cell {cell}", f"{kernel} {shape}", launch,
                 args.reps)
+    for name, m in STAGE_CELLS if "stages" in builds else ():
+        for call in stage_calls(text, t, name, m):
+            shape, launch = stages_launcher(*call)
+            compare(builds["stages"], f"engine {name} m={m}",
+                    f"stages {shape}", launch, args.reps)
     return 0
 
 

@@ -58,6 +58,9 @@
 //     totals in shared memory) ranks them, and a thread whose rank is below
 //     16 writes its first candidates' positions; the plain torch version
 //     ranks with a cumsum and agrees bit for bit.
+// The run (fp_run_hits in fp_filter.cuh) and its stores (store_run_mask,
+// rank_run_slots in tile_pipeline.cuh) are shared with stages.cu, whose
+// fingerprint stage is this filter.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -67,124 +70,21 @@
 
 namespace {
 
+using tsm::kRun;
+using tsm::kSlots;
 using tsm::Rolling;
 using tsm::StageCD;
 
 constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRun = 32;                  // consecutive starts per thread
 constexpr int kTile = kThreads * kRun;    // starts per tile
 constexpr int kSub = 16384;               // starts per sub-block, slots mode
-constexpr int kSlots = 16;                // BLOCK_SLOTS
-constexpr int kBranchFree = 3;            // stages tested without a branch
+constexpr int kBranchFree = tsm::kFpBranchFree;
 // Shared memory a block keeps to, so that two blocks (32 warps) fit on an SM.
 constexpr int kSmemTarget = 112 * 1024;
 static_assert(kTile == kSub, "a slots-mode tile is one sub-block");
 
-// Bytes of one text buffer: the tile's starts and the (m-1)-byte halo at an
-// offset shift < 16, and the chunks after them that a run's shifted loads
-// may touch.
 __host__ __device__ inline int buf_bytes(int m) {
-  return (kTile + m + 30) / 16 * 16 + 16;
-}
-
-// Bit `key` of a bitmap in shared memory.
-__device__ __forceinline__ uint32_t bit_of(const uint32_t* bm, uint32_t key) {
-  return (bm[key >> 5] >> (key & 31)) & 1u;
-}
-
-// The 4 * kOut bytes at b + p as words (b 16-byte aligned, p % 16 == s, s
-// uniform over the block): kOut / 4 + 1 aligned loads, funnel-shifted by s.
-template <int kOut>
-__device__ __forceinline__ void words_at(const uint8_t* b, int p, int s,
-                                         uint32_t (&out)[kOut]) {
-  const uint4* c = reinterpret_cast<const uint4*>(b) + (p >> 4);
-  uint32_t w[kOut + 4];
-#pragma unroll
-  for (int i = 0; i <= kOut / 4; ++i) {
-    const uint4 h = c[i];
-    w[4 * i] = h.x, w[4 * i + 1] = h.y, w[4 * i + 2] = h.z,
-    w[4 * i + 3] = h.w;
-  }
-  tsm::shifted_words(w, s, out);
-}
-
-// The three fingerprints (in uint32, not masked) of the m bytes at b + p, b
-// 16-byte aligned in shared memory and s = p % 16 uniform over the block:
-// tsm::horner_fps where p is aligned; else Horner's rule from the last byte,
-// the bytes past the last whole 16 one by one, then 16 bytes per step.
-__device__ __forceinline__ void horner_at(const uint8_t* b, int p, int s,
-                                          int m, uint32_t& f0, uint32_t& f1,
-                                          uint32_t& f2) {
-  if (s == 0) {
-    tsm::horner_fps(b + p, m, f0, f1, f2);
-    return;
-  }
-  f0 = f1 = f2 = 0;
-  const int whole = m & ~15;
-  for (int j = m - 1; j >= whole; --j) {
-    const uint32_t t = b[p + j];
-    f0 = f0 * tsm::kMult0 + t;
-    f1 = f1 * tsm::kMult1 + t;
-    f2 = f2 * tsm::kMult2 + t;
-  }
-  for (int c = whole - 16; c >= 0; c -= 16) {
-    uint32_t x[4];
-    words_at(b, p + c, s, x);
-#pragma unroll
-    for (int j = 15; j >= 0; --j) {
-      const uint32_t t = tsm::byte_of(x, j);
-      f0 = f0 * tsm::kMult0 + t;
-      f1 = f1 * tsm::kMult1 + t;
-      f2 = f2 * tsm::kMult2 + t;
-    }
-  }
-}
-
-// The candidates among the kRun starts whose windows begin at b + p, as bits
-// (bit j: start j of the run).  Stages [0, ks) are in shared memory at sbm
-// (ks >= min(k, kBranchFree)), the rest at bitmaps.
-__device__ __forceinline__ uint32_t run_hits(
-    const uint8_t* b, int p, int s, int m, const uint32_t* sbm,
-    const uint32_t* __restrict__ bitmaps, int k, int ks, int words,
-    uint32_t smask, const StageCD& cd, const Rolling& roll) {
-  uint32_t f0, f1, f2;
-  horner_at(b, p, s, m, f0, f1, f2);
-  uint32_t outw[kRun / 4], inw[kRun / 4];   // the bytes leaving, entering
-  words_at(b, p, s, outw);
-  words_at(b, p + m, (s + m) & 15, inw);
-  uint32_t c[kBranchFree], d[kBranchFree];
-#pragma unroll
-  for (int i = 0; i < kBranchFree; ++i) c[i] = cd.c[i], d[i] = cd.d[i];
-  uint32_t hits = 0;
-#pragma unroll
-  for (int j = 0; j < kRun; ++j) {
-    const uint32_t a0 = f0 & 0xFFFFu, a1 = f1 & 0xFFFFu, a2 = f2 & 0xFFFFu;
-    // the first stages for every start, without a branch; the rest for the
-    // starts that pass them
-    uint32_t ok = bit_of(sbm, (a0 + c[0] * a1 + d[0] * a2) & smask);
-#pragma unroll
-    for (int i = 1; i < kBranchFree; ++i)
-      if (k > i)
-        ok &= bit_of(sbm + i * words, (a0 + c[i] * a1 + d[i] * a2) & smask);
-    if (ok && k > kBranchFree) {
-      ok = tsm::stages_hit_shared(a0, a1, a2, sbm + kBranchFree * words, cd,
-                                  kBranchFree, ks, words, smask);
-      if (ok && ks < k)
-        ok = tsm::stages_hit({a0, a1, a2}, bitmaps, cd, ks, k, words, smask);
-    }
-    hits |= ok << j;
-    if (j + 1 < kRun)
-      tsm::roll_fps(roll, tsm::byte_of(outw, j), tsm::byte_of(inw, j), f0,
-                    f1, f2);
-  }
-  return hits;
-}
-
-// Four bits of a hit mask as four bytes of 0 or 1 (the bits land on bits 0,
-// 8, 16 and 24, with no carries between them).
-__device__ __forceinline__ uint32_t spread4(uint32_t bits) {
-  return ((bits & 0xFu) * 0x00204081u) & 0x01010101u;
+  return tsm::run_buf_bytes(kTile, m);
 }
 
 // text: the 16-byte aligned address at or below the view, whose start count
@@ -200,13 +100,12 @@ filter_kernel(const uint8_t* __restrict__ text, long long n, int shift, int m,
               int* __restrict__ pos, int* __restrict__ counts,
               long long tiles, int bm_bytes) {
   extern __shared__ uint4 smem[];
-  __shared__ int wsum[kWarps];                  // slots mode: warp totals
+  __shared__ int wsum[kThreads / 32];           // slots mode: warp totals
   uint32_t* sbm = reinterpret_cast<uint32_t*>(smem);   // ks * words
   uint8_t* bufs = reinterpret_cast<uint8_t*>(smem) + bm_bytes;
   const int blen = buf_bytes(m);
   for (int i = threadIdx.x; i < ks * words; i += kThreads)
     sbm[i] = __ldg(bitmaps + i);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int off = threadIdx.x * kRun;            // the run's first start
 
   long long tile = blockIdx.x;
@@ -224,45 +123,18 @@ filter_kernel(const uint8_t* __restrict__ text, long long n, int shift, int m,
     const long long i0 = tile * kTile + off;
     uint32_t hits = 0;
     if (i0 < n_starts) {
-      hits = run_hits(bufs + (it & 1) * blen, shift + off, shift, m, sbm,
-                      bitmaps, k, ks, words, smask, cd, roll);
+      hits = tsm::fp_run_hits(bufs + (it & 1) * blen, shift + off, shift, m,
+                              sbm, bitmaps, k, ks, words, smask, cd, roll,
+                              ~0u);
       const long long valid = n_starts - i0;
       if (valid < kRun) hits &= (1u << valid) - 1u;
     }
     if constexpr (!kSlotsMode) {
-      if (i0 < n_out) {                  // n_out is a multiple of kRun
-        uint4* o = reinterpret_cast<uint4*>(mask + i0);
-        o[0] = make_uint4(spread4(hits), spread4(hits >> 4),
-                          spread4(hits >> 8), spread4(hits >> 12));
-        o[1] = make_uint4(spread4(hits >> 16), spread4(hits >> 20),
-                          spread4(hits >> 24), spread4(hits >> 28));
-      }
+      if (i0 < n_out)                    // n_out is a multiple of kRun
+        tsm::store_run_mask(mask + i0, hits);
     } else {
-      // rank the candidates in position order: a scan of the runs' counts
-      // within the warp, then the totals of the warps before it
-      const int cnt = __popc(hits);
-      int incl = cnt;
-#pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        const int y = __shfl_up_sync(0xffffffffu, incl, d);
-        if (lane >= d) incl += y;
-      }
-      if (lane == 31) wsum[warp] = incl;
-      __syncthreads();
-      int before = 0, total = 0;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) {
-        const int x = wsum[w];
-        total += x;
-        before += w < warp ? x : 0;
-      }
-      int* out = pos + tile * kSlots;
-      int rank = before + incl - cnt;
-      for (uint32_t h = hits; h && rank < kSlots; h &= h - 1, ++rank)
-        out[rank] = (int)(i0 + __ffs(h) - 1);
-      if ((int)threadIdx.x >= total && threadIdx.x < kSlots)
-        out[threadIdx.x] = -1;
-      if (threadIdx.x == 0) counts[tile] = total;
+      tsm::rank_run_slots<kThreads>(hits, i0, pos + tile * kSlots,
+                                    counts + tile, wsum);
     }
     __syncthreads();                  // buffer and wsum free for reuse
   }

@@ -15,15 +15,16 @@
 //
 // Two ways to get the fingerprints:
 //   - base_fps: Horner's rule over one window, 3m multiply-adds per start
-//     (stages.cu; cascade.cu's phase 2 for a run's later survivors);
+//     (cascade.cu's phase 2 for a run's later survivors);
 //   - Rolling: the multipliers are odd, so invertible mod 2^32, and
 //         fp(i+1) = (fp(i) - t[i]) * M^-1 + t[i+m] * M^(m-1)
 //     holds exactly in uint32.  A thread runs Horner once for the first
 //     start of its run of consecutive starts (horner_fps, over a 16-byte
 //     aligned window in shared memory, 16 bytes per load) and rolls the rest
 //     in O(1): a subtract, a multiply and a multiply-add per fingerprint
-//     (cascade.cu, filter.cu).  Rolling::make computes M^-1 and M^(m-1) on
-//     the host.
+//     (cascade.cu; filter.cu and stages.cu through fp_run_hits, for runs of
+//     kRun starts at any byte offset).  Rolling::make computes M^-1 and
+//     M^(m-1) on the host.
 // Bitmaps are read through the read-only cache (__ldg), or from shared
 // memory where a kernel stages them (stages_hit_shared).
 
@@ -31,6 +32,8 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "tile_pipeline.cuh"
 
 namespace tsm {
 
@@ -62,20 +65,6 @@ inline bool valid_stage_bits(int stage_bits) {
 struct BaseFps {
   uint32_t f0, f1, f2;
 };
-
-// Block-wide, over a block of kThreads threads: tile[i] = text[base + i] for
-// i < len, zero past the text's end.  (A compile-time stride: with blockDim.x
-// the cascade ran 4% slower on an H100, tpu_smatcher_torch/ab_cascade.py.)
-template <int kThreads>
-__device__ __forceinline__ void load_tile(uint8_t* tile,
-                                          const uint8_t* __restrict__ text,
-                                          long long n, long long base,
-                                          int len) {
-  for (int i = threadIdx.x; i < len; i += kThreads) {
-    long long g = base + i;
-    tile[i] = g < n ? text[g] : 0;
-  }
-}
 
 // The three base fingerprints of the m bytes at w.
 __device__ __forceinline__ BaseFps base_fps(const uint8_t* w, int m) {
@@ -188,6 +177,94 @@ __device__ __forceinline__ void roll_fps(const Rolling& r, uint32_t out,
   a = a * r.inv[0] + (in * r.top[0] - out * r.inv[0]);
   b = b * r.inv[1] + (in * r.top[1] - out * r.inv[1]);
   e = e * r.inv[2] + (in * r.top[2] - out * r.inv[2]);
+}
+
+// ---------------------------------------------------------------------------
+// a run of kRun starts through k fingerprint stages (filter.cu, stages.cu)
+// ---------------------------------------------------------------------------
+
+constexpr int kFpBranchFree = 3;   // stages tested without a branch
+
+// Bit `key` of a bitmap in shared memory.
+__device__ __forceinline__ uint32_t smem_bit(const uint32_t* bm,
+                                             uint32_t key) {
+  return (bm[key >> 5] >> (key & 31)) & 1u;
+}
+
+// The three fingerprints (in uint32, not masked) of the m bytes at b + p, b
+// 16-byte aligned in shared memory and s = p % 16 uniform over the block:
+// horner_fps where p is aligned; else Horner's rule from the last byte, the
+// bytes past the last whole 16 one by one, then 16 bytes per step.
+__device__ __forceinline__ void horner_at(const uint8_t* b, int p, int s,
+                                          int m, uint32_t& f0, uint32_t& f1,
+                                          uint32_t& f2) {
+  if (s == 0) {
+    horner_fps(b + p, m, f0, f1, f2);
+    return;
+  }
+  f0 = f1 = f2 = 0;
+  const int whole = m & ~15;
+  for (int j = m - 1; j >= whole; --j) {
+    const uint32_t t = b[p + j];
+    f0 = f0 * kMult0 + t;
+    f1 = f1 * kMult1 + t;
+    f2 = f2 * kMult2 + t;
+  }
+  for (int c = whole - 16; c >= 0; c -= 16) {
+    uint32_t x[4];
+    words_at(b, p + c, s, x);
+#pragma unroll
+    for (int j = 15; j >= 0; --j) {
+      const uint32_t t = byte_of(x, j);
+      f0 = f0 * kMult0 + t;
+      f1 = f1 * kMult1 + t;
+      f2 = f2 * kMult2 + t;
+    }
+  }
+}
+
+// The candidates among the kRun starts whose windows begin at b + p, as bits
+// (bit j: start j of the run): Horner's rule on the first window, then the
+// fingerprints roll, the bytes leaving and entering the window funnel-shifted
+// out of 16-byte loads.  Stages [0, ks) are in shared memory at sbm (ks >=
+// min(k, kFpBranchFree)), the rest at bitmaps.  The first kFpBranchFree
+// stages, which nearly every warp runs for nearly every start, are tested
+// for every start without a branch; the rest only for a start that passed
+// them and whose bit in `live` is set (the other stages of a chain), until
+// the first miss.  A start outside `live` may come out set: the caller ANDs.
+__device__ __forceinline__ uint32_t fp_run_hits(
+    const uint8_t* b, int p, int s, int m, const uint32_t* sbm,
+    const uint32_t* __restrict__ bitmaps, int k, int ks, int words,
+    uint32_t smask, const StageCD& cd, const Rolling& roll, uint32_t live) {
+  uint32_t f0, f1, f2;
+  horner_at(b, p, s, m, f0, f1, f2);
+  uint32_t outw[kRun / 4], inw[kRun / 4];   // the bytes leaving, entering
+  words_at(b, p, s, outw);
+  words_at(b, p + m, (s + m) & 15, inw);
+  uint32_t c[kFpBranchFree], d[kFpBranchFree];
+#pragma unroll
+  for (int i = 0; i < kFpBranchFree; ++i) c[i] = cd.c[i], d[i] = cd.d[i];
+  uint32_t hits = 0;
+#pragma unroll
+  for (int j = 0; j < kRun; ++j) {
+    const uint32_t a0 = f0 & 0xFFFFu, a1 = f1 & 0xFFFFu, a2 = f2 & 0xFFFFu;
+    uint32_t ok = smem_bit(sbm, (a0 + c[0] * a1 + d[0] * a2) & smask);
+#pragma unroll
+    for (int i = 1; i < kFpBranchFree; ++i)
+      if (k > i)
+        ok &= smem_bit(sbm + i * words,
+                       (a0 + c[i] * a1 + d[i] * a2) & smask);
+    if (ok && ((live >> j) & 1u) && k > kFpBranchFree) {
+      ok = stages_hit_shared(a0, a1, a2, sbm + kFpBranchFree * words, cd,
+                             kFpBranchFree, ks, words, smask);
+      if (ok && ks < k)
+        ok = stages_hit({a0, a1, a2}, bitmaps, cd, ks, k, words, smask);
+    }
+    hits |= ok << j;
+    if (j + 1 < kRun)
+      roll_fps(roll, byte_of(outw, j), byte_of(inw, j), f0, f1, f2);
+  }
+  return hits;
 }
 
 }  // namespace tsm

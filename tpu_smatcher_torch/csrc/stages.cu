@@ -25,9 +25,9 @@
 //                      g(j) = t[j] + t[j+1]*sigma + t[j+2]*sigma^2.
 // A wm or sog lookup past the table gives 0, as the TPU's banked lookup does
 // (_value_lookup, :51): a 0 is a hit, so out-of-alphabet bytes make
-// candidates and never reject one.  T is read as uint32 (bit 31 of sog32).
-// With the guard, a window holding a byte >= sigma is dropped (the running
-// max compared as int, as in exact_count.cu: sigma = 256 drops nothing).
+// candidates and never reject one.  T is read as uint32 (bit 31 at m = 34).
+// With the guard, a window holding a byte >= sigma is dropped (bytes
+// compared as int, as in exact_count.cu: sigma = 256 drops nothing).
 //
 // Outputs, by mode:
 //   count  one zeroed int32, += the candidates: a warp shuffle and one
@@ -37,33 +37,78 @@
 //          (-1 where fewer) and its true candidate count, the layout of
 //          filter.cu's slots mode (its word view comes from words.cu).
 //
-// What bounds it on an H100: integer ALU, as for filter.cu.  The design is
-// the simple one: the small tables of the chain (wid bitmaps of at most 8 KB,
-// the WM SHIFT and SOG T tables of at most 4,096 entries) are staged in
-// shared memory once per block; each block walks 16,384-start tiles
-// (grid-stride) with the tile's bytes plus the (m-1)-byte halo in shared
-// memory; a thread takes one start per step and evaluates the chain stage
-// by stage, stopping at the first miss.  The sog stage is m-2 lookups per
-// start here, where a shift-or register needs O(1); the fp stages' tables
-// do not fit shared memory at p = 100k and come through __ldg.
+// What bounds it on an H100: integer issue, as for filter.cu.  The text is
+// read once and the outputs are small; every stage needs O(1) work per start.
+// The first design (one start per thread, each stage rebuilt from the
+// window's bytes: Horner's rule over m bytes for the fp stages, m-2 lookups
+// for sog, the guard rescanning the window; the text staged byte by byte)
+// ran at 2-7% of its bound.  This design is filter.cu's:
+//   - a thread owns a run of kRun = 32 consecutive starts; 512-thread blocks
+//     in a persistent grid walk 16,384-start tiles (one slot sub-block), the
+//     text staged by cp.async into two buffers so the next tile's copy
+//     overlaps this tile's work, a view at any address copied from the
+//     16-byte aligned address below it (tile_pipeline.cuh);
+//   - each stage gives the run's 32 results as a hit mask, and the chain is
+//     the AND of the masks, so the order of the stages changes nothing.
+//     The bitmap, guard and fp stages roll over the run, so each start
+//     costs O(1) whatever its hit:
+//       wid    s = s * 2^bits + t[i+off+d-1], key = s & (2^(d*bits) - 1),
+//              one multiply-add per start (exact_count.cu's rolling id); a
+//              run holding a byte >= 2^bits, or a bitmap smaller than
+//              2^(d*bits) bits, takes a per-start loop of the OR key, so any
+//              bytes stay exact;
+//       fpset  fp_filter.cuh's fp_run_hits (Horner's rule once per run, then
+//              rolling fingerprints; stages in shared memory while a block
+//              stays within 112 KB, the first three tested without a
+//              branch), its later stages only for starts the other stages
+//              left alive;
+//       guard  the bytes >= sigma entering the run's windows as a 32-bit
+//              mask (__vcmpgeu4), smeared over the m starts whose window
+//              holds each, and the last such byte of the first window;
+//     the value stages pass nearly every start on the bench sets (wm and
+//     sog 1.000 at m = 8 and 32, DNA), so they come last where the other
+//     stages leave few starts (chain_run):
+//       sog    in front of an exact tier, a shift-or register E = (E << 1)
+//              | T[g(j)] over the run's grams, E = 0 at the run's first
+//              gram: start s hits iff bit m-3 of E is 0 after gram s+m-3
+//              (bit m-3 then holds the OR of bit i of T[g(s+i)], i =
+//              0..m-3), so a run costs 32 + m - 2 lookups where the first
+//              design took 32 * (m - 2); behind the fp stages, m-2 lookups
+//              for each start still live;
+//       wm     one lookup for each start still live;
+//   - the entering bytes of the rolling stages come from 16-byte
+//     shared-memory loads, funnel-shifted into place (words_at);
+//   - the six chain kinds EngineFastPath builds (kernel_for) are
+//     instantiations of their own; any other chain the wrapper takes (up to
+//     4 stages, at most one fpset) runs in a generic one, the same stage
+//     code;
+//   - count mode: __popc of the run's mask, a warp shuffle and one atomicAdd
+//     per warp; mask mode: two 16-byte stores per run; slots mode: the
+//     block-wide __popc prefix of tile_pipeline.cuh's rank_run_slots.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "fp_filter.cuh"
+#include "tile_pipeline.cuh"
 
 namespace {
 
-using tsm::BaseFps;
+using tsm::byte_of;
+using tsm::kRun;
+using tsm::kSlots;
+using tsm::Rolling;
 using tsm::StageCD;
 
-constexpr int kThreads = 256;
-constexpr int kTile = 16384;        // starts per tile = one slot sub-block
-constexpr int kSlots = 16;          // BLOCK_SLOTS
+constexpr int kThreads = 512;
+constexpr int kTile = kThreads * kRun;   // starts per tile = one sub-block
 constexpr int kMaxChain = 4;
-constexpr int kMaxSmem = 232448;    // a block's shared memory on an H100
+constexpr int kMaxSmem = 232448;         // a block's shared memory on an H100
+// Shared memory a block keeps to, so that two blocks (32 warps) fit on an SM.
+constexpr int kSmemTarget = 112 * 1024;
 
-enum Kind { kWid = 0, kFpset = 1, kWm = 2, kSog = 3 };
+// stage kinds (the wrapper's numbering), and two for the instantiations
+enum Kind { kWid = 0, kFpset = 1, kWm = 2, kSog = 3, kNone = 4, kAny = 5 };
 enum Mode { kCount = 0, kMask = 1, kSlotsMode = 2 };
 
 struct Stage {
@@ -77,136 +122,312 @@ struct Stage {
 struct Chain {
   int n;
   Stage s[kMaxChain];
-  StageCD cd;      // the fpset stage's (C, D) pairs
+  int fp;          // the fpset stage's index, or -1
+  int ks;          // its stages in shared memory, at s[fp].soff
+  StageCD cd;      // its (C, D) pairs
+  Rolling roll;
 };
 
-__device__ __forceinline__ uint32_t lookup0(const uint32_t* tab, int len,
+__host__ __device__ inline int buf_bytes(int m) {
+  return tsm::run_buf_bytes(kTile, m);
+}
+
+// The 32 bytes at b + p + x as words (p % 16 == s).
+__device__ __forceinline__ void entering(const uint8_t* b, int p, int s,
+                                         int x, uint32_t (&in)[8]) {
+  tsm::words_at(b, p + x, (s + x) & 15, in);
+}
+
+__device__ __forceinline__ uint32_t lookup0(const uint32_t* tab, uint32_t len,
                                             uint32_t i) {
-  return i < (uint32_t)len ? tab[i] : 0u;
+  return i < len ? tab[i] : 0u;
 }
 
-__device__ __forceinline__ bool stage_hit(const Stage& st, const Chain& ch,
-                                          const uint8_t* w, int m,
-                                          const uint32_t* smem) {
-  const uint32_t* tab = smem + st.soff;
-  switch (st.kind) {
-    case kWid: {
-      uint32_t key = 0;
-      for (int j = 0; j < st.b; ++j) key = (key << st.c) | w[st.a + j];
-      return key < (uint32_t)st.len * 32u &&
-             ((tab[key >> 5] >> (key & 31)) & 1u);
+// wid(off, d, bits) over the run at b + p; tab: the bitmap in shared memory.
+__device__ __forceinline__ uint32_t wid_run(const Stage& st,
+                                            const uint32_t* tab,
+                                            const uint8_t* b, int p, int s) {
+  const int off = st.a, d = st.b, bits = st.c;
+  const uint32_t nbits = (uint32_t)st.len * 32u;
+  const uint32_t radix = 1u << bits, kmask = (1u << (d * bits)) - 1u;
+  // a byte >= 2^bits in any lane of a word
+  const uint32_t dirty_bytes = 0x01010101u * (0xFFu & ~(radix - 1u));
+  uint32_t in[8];                    // bytes [off+d-1, off+d+31) of the run
+  entering(b, p, s, off + d - 1, in);
+  uint32_t dirty = nbits <= kmask;   // a key may fall past the bitmap
+#pragma unroll
+  for (int k = 0; k < 8; ++k) dirty |= in[k] & dirty_bytes;
+  uint32_t key = 0;
+  for (int j = 0; j < d - 1; ++j) {  // the first window's first d-1 bytes
+    const uint32_t c = b[p + off + j];
+    dirty |= c >> bits;
+    key = key * radix + c;
+  }
+  uint32_t hits = 0;
+  if (!dirty) {
+    // on bytes below 2^bits, key * 2^bits + byte is (key << bits) | byte
+#pragma unroll
+    for (int j = 0; j < kRun; ++j) {
+      key = key * radix + byte_of(in, j);
+      hits |= tsm::smem_bit(tab, key & kmask) << j;
     }
-    case kFpset: {
-      BaseFps f = tsm::base_fps(w, m);
-      return tsm::stages_hit(f, st.table, ch.cd, 0, st.a, st.b / 32,
-                             (uint32_t)(st.b - 1));
-    }
-    case kWm: {
-      uint32_t h = ((uint32_t)w[m - 3] * 4u + w[m - 2]) * 4u + w[m - 1];
-      return lookup0(tab, st.len, h) == 0;
-    }
-    default: {  // kSog
-      const uint32_t sg = (uint32_t)st.c;
-      bool ok = true;
-      for (int i = 0; i + 2 < m && ok; ++i) {
-        uint32_t g = w[i] + w[i + 1] * sg + w[i + 2] * sg * sg;
-        ok = !((lookup0(tab, st.len, g) >> i) & 1u);
-      }
-      return ok;
+  } else {
+    for (int j = 0; j < kRun; ++j) {
+      uint32_t k = 0;
+      for (int i = 0; i < d; ++i) k = (k << bits) | b[p + off + j + i];
+      hits |= (k < nbits ? tsm::smem_bit(tab, k) : 0u) << j;
     }
   }
+  return hits;
 }
 
-__device__ __forceinline__ bool chain_hit(const Chain& ch, const uint8_t* w,
-                                          int m, int sigma, bool guard,
-                                          const uint32_t* smem) {
-  for (int i = 0; i < ch.n; ++i)
-    if (!stage_hit(ch.s[i], ch, w, m, smem)) return false;
-  if (guard) {
-    int mx = 0;
-    for (int j = 0; j < m; ++j) mx = w[j] > mx ? w[j] : mx;
-    if (mx >= sigma) return false;
+// sog(sigma) over the run: the shift-or register over grams 0 .. m+30 of
+// the run, checked at bit m-3 from gram m-3 on.
+__device__ __forceinline__ uint32_t sog_run(const Stage& st,
+                                            const uint32_t* tab,
+                                            const uint8_t* b, int p, int s,
+                                            int m) {
+  const uint32_t sg = (uint32_t)st.c, sg2 = sg * sg, len = st.len;
+  uint32_t x = b[p], y = b[p + 1], e = 0;
+  for (int j = 0; j < m - 3; ++j) {  // grams 0 .. m-4: no start checked
+    const uint32_t z = b[p + j + 2];
+    e = (e << 1) | lookup0(tab, len, x + y * sg + z * sg2);
+    x = y;
+    y = z;
   }
-  return true;
+  uint32_t in[8];                    // bytes [m-1, m+31): gram j's third
+  entering(b, p, s, m - 1, in);
+  const int top = m - 3;
+  uint32_t hits = 0;
+#pragma unroll
+  for (int j = 0; j < kRun; ++j) {
+    const uint32_t z = byte_of(in, j);
+    e = (e << 1) | lookup0(tab, len, x + y * sg + z * sg2);
+    hits |= ((~e >> top) & 1u) << j;
+    x = y;
+    y = z;
+  }
+  return hits;
 }
 
-// tiles: count mode ceil(n_starts / kTile); mask mode ceil(n_out /
-// kTile) with n_out = rows * 128 starts written; slots mode n_sub.
+// Four bytes of 0 or 0xFF (a __vcmpgeu4 result) as four bits.
+__device__ __forceinline__ uint32_t bits4(uint32_t x) {
+  return ((x & 0x01010101u) * 0x10204080u) >> 28;
+}
+
+// The pad guard over the run: the starts whose window holds no byte >= thr
+// (0 <= thr <= 255).
+__device__ __forceinline__ uint32_t guard_run(const uint8_t* b, int p, int s,
+                                              int m, int thr) {
+  int last = -1;                     // the first window's last such byte
+  for (int j = 0; j < m - 1; ++j)
+    if ((int)b[p + j] >= thr) last = j;
+  uint32_t in[8];                    // bytes [m-1, m+31): byte m-1+j enters
+  entering(b, p, s, m - 1, in);      // start j's window
+  const uint32_t t4 = 0x01010101u * (uint32_t)thr;
+  uint32_t enter = 0;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) enter |= bits4(__vcmpgeu4(in[k], t4)) << (4 * k);
+  // byte m-1+j lies in the windows of starts j .. j+m-1: smear each bit of
+  // enter over the m bits from it up (r = OR of enter << t, t < c)
+  uint32_t r = enter;
+  for (int c = 1; c < m && c < 32;) {
+    const int step = c < m - c ? c : m - c;
+    r |= r << step;
+    c += step;
+  }
+  const uint32_t first = last < 0 ? 0u : last >= 31 ? ~0u : (2u << last) - 1u;
+  return ~(r | first);
+}
+
+// A value stage (wm, sog) per start, for the starts in live only (a subset
+// of live): wm's one lookup, or sog's m-2, stopping at a set bit.
+template <int K>
+__device__ __forceinline__ uint32_t value_starts(const Stage& st,
+                                                 const uint32_t* tab,
+                                                 const uint8_t* b, int p,
+                                                 int m, uint32_t live) {
+  const uint32_t sg = (uint32_t)st.c, sg2 = sg * sg, len = st.len;
+  uint32_t hits = 0;
+  for (uint32_t h = live; h; h &= h - 1) {
+    const int j = __ffs(h) - 1;
+    const uint8_t* w = b + p + j;
+    bool ok;
+    if constexpr (K == kWm) {
+      ok = lookup0(tab, len, (w[m - 3] * 4u + w[m - 2]) * 4u + w[m - 1]) == 0;
+    } else {
+      ok = true;
+      for (int i = 0; i + 2 < m && ok; ++i)
+        ok = !((lookup0(tab, len, w[i] + w[i + 1] * sg + w[i + 2] * sg2) >> i)
+               & 1u);
+    }
+    hits |= (uint32_t)ok << j;
+  }
+  return hits;
+}
+
+// The chain's hit mask over the run at b + p, in three steps (the AND does
+// not depend on the order):
+//   1. the guard (thr >= 0), the wid stages, and a sog stage of a chain
+//      without an fp stage, each rolling over all 32 starts;
+//   2. the fp stages, their later ones only for the starts still live;
+//   3. per live start, the wm stage, and a sog stage of a chain with an fp
+//      stage: the fp stages leave about 1 start in 10^4, and a start that
+//      reaches a value stage pays a few lookups where the rolling register
+//      costs every start one.  A wm stage's one lookup is worth deferring
+//      behind an exact tier too (14% of starts live); sog's m-2 are not
+//      (one-process A/B, H100: 0.94x and 1.78x).
+// K0: stage 0's kind, kNone, or kAny (the generic chain: every stage by its
+// kind); K1: the tier's (wid or fpset; kAny).
+template <int K0, int K1>
+__device__ __forceinline__ uint32_t chain_run(const Chain& ch,
+                                              const uint32_t* smem,
+                                              const uint8_t* b, int p, int s,
+                                              int m, int thr) {
+  uint32_t live = thr >= 0 ? guard_run(b, p, s, m, thr) : ~0u;
+  const bool fp = ch.fp >= 0;
+  if constexpr (K0 == kAny) {
+    for (int i = 0; i < ch.n; ++i) {
+      const Stage& st = ch.s[i];
+      if (st.kind == kWid)
+        live &= wid_run(st, smem + st.soff, b, p, s);
+      else if (st.kind == kSog && !fp)
+        live &= sog_run(st, smem + st.soff, b, p, s, m);
+    }
+  } else if constexpr (K0 == kWid) {
+    live &= wid_run(ch.s[0], smem + ch.s[0].soff, b, p, s);
+  } else if constexpr (K0 == kSog && K1 == kWid) {
+    live &= sog_run(ch.s[0], smem + ch.s[0].soff, b, p, s, m);
+  }
+  if constexpr (K1 == kWid) {
+    const Stage& st = ch.s[ch.n - 1];
+    live &= wid_run(st, smem + st.soff, b, p, s);
+  }
+  if constexpr (K1 == kFpset || K1 == kAny) {
+    if (fp && live) {
+      const Stage& st = ch.s[ch.fp];
+      live &= tsm::fp_run_hits(b, p, s, m, smem + st.soff, st.table, st.a,
+                               ch.ks, st.b / 32, (uint32_t)(st.b - 1), ch.cd,
+                               ch.roll, live);
+    }
+  }
+  if constexpr (K0 == kAny) {
+    for (int i = 0; i < ch.n && live; ++i) {
+      const Stage& st = ch.s[i];
+      if (st.kind == kWm)
+        live = value_starts<kWm>(st, smem + st.soff, b, p, m, live);
+      else if (st.kind == kSog && fp)
+        live = value_starts<kSog>(st, smem + st.soff, b, p, m, live);
+    }
+  } else if constexpr (K0 == kWm || (K0 == kSog && K1 == kFpset)) {
+    if (live)
+      live = value_starts<K0>(ch.s[0], smem + ch.s[0].soff, b, p, m, live);
+  }
+  return live;
+}
+
+// text: the 16-byte aligned address at or below the view, whose start count
+// is n_starts and whose first byte is text[shift]; n: the view's length plus
+// shift.  thr: the guard's threshold, or -1 without the guard.  tab_bytes:
+// the staged tables' shared memory (16-byte multiple), then the two text
+// buffers.  Count mode adds to count, mask mode writes mask (n_out = R*128
+// entries), slots mode pos and counts (one entry per tile).
+// No minimum of blocks per SM: asking for two (64 registers a thread) ran
+// the exact-tier chains 3-9% slower and the fp chains at most 1% faster
+// (one-process A/B, H100).
+template <int K0, int K1>
 __global__ void __launch_bounds__(kThreads) stages_kernel(
-    const uint8_t* __restrict__ text, long long n, int m, int sigma,
-    int guard, int mode, long long n_starts, long long n_out,
-    long long tiles, Chain ch, int tab_words, int* __restrict__ count,
-    int8_t* __restrict__ mask, int* __restrict__ pos,
-    int* __restrict__ counts) {
-  extern __shared__ uint32_t smem[];     // tab_words, then the text tile
-  __shared__ int wcnt[kThreads / 32];
+    const uint8_t* __restrict__ text, long long n, int shift, int m, int thr,
+    int mode, long long n_starts, long long n_out, long long tiles, Chain ch,
+    int tab_bytes, int* __restrict__ count, int8_t* __restrict__ mask,
+    int* __restrict__ pos, int* __restrict__ counts) {
+  extern __shared__ uint4 smem4[];
+  __shared__ int wsum[kThreads / 32];            // slots mode: warp totals
+  uint32_t* smem = reinterpret_cast<uint32_t*>(smem4);
+  uint8_t* bufs = reinterpret_cast<uint8_t*>(smem4) + tab_bytes;
   for (int i = 0; i < ch.n; ++i) {
     const Stage& st = ch.s[i];
-    if (st.kind == kFpset) continue;
-    for (int j = threadIdx.x; j < st.len; j += kThreads)
+    const int words = st.kind == kFpset ? ch.ks * (st.b / 32) : st.len;
+    for (int j = threadIdx.x; j < words; j += kThreads)
       smem[st.soff + j] = __ldg(st.table + j);
   }
-  uint8_t* tile = reinterpret_cast<uint8_t*>(smem + tab_words);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const bool g = guard != 0;
+  const int blen = buf_bytes(m);
+  const int off = threadIdx.x * kRun;            // the run's first start
   int cnt = 0;
-  for (long long b = blockIdx.x; b < tiles; b += gridDim.x) {
-    const long long base = b * kTile;
-    __syncthreads();             // tables staged / previous tile consumed
-    tsm::load_tile<kThreads>(tile, text, n, base, kTile + m - 1);
+
+  long long tile = blockIdx.x;
+  tsm::stage_tile<kThreads>(bufs, text, n, tile * kTile, blen, true);
+  tsm::cp_async_commit();
+  for (int it = 0; tile < tiles; ++it, tile += gridDim.x) {
+    const long long next = tile + gridDim.x;
+    if (next < tiles)
+      tsm::stage_tile<kThreads>(bufs + ((it + 1) & 1) * blen, text, n,
+                                next * kTile, blen, true);
+    tsm::cp_async_commit();
+    tsm::cp_async_wait_prev();
     __syncthreads();
-    if (mode == kCount) {
-      for (int i = tid; i < kTile && base + i < n_starts; i += kThreads)
-        cnt += chain_hit(ch, tile + i, m, sigma, g, smem);
-    } else if (mode == kMask) {
-      for (int i = tid; i < kTile && base + i < n_out; i += kThreads)
-        mask[base + i] = (int8_t)(base + i < n_starts &&
-                                  chain_hit(ch, tile + i, m, sigma, g, smem));
-    } else {
-      // the first kSlots candidates of the sub-block in position order:
-      // ballot + popc in a warp, a prefix over the warps, chunk by chunk
-      int* out = pos + b * kSlots;
-      int running = 0;           // candidates in earlier chunks
-      for (int c0 = 0; c0 < kTile && base + c0 < n_starts; c0 += kThreads) {
-        long long s = base + c0 + tid;
-        bool c = s < n_starts && chain_hit(ch, tile + c0 + tid, m, sigma, g,
-                                           smem);
-        unsigned bal = __ballot_sync(0xffffffffu, c);
-        if (lane == 0) wcnt[warp] = __popc(bal);
-        __syncthreads();
-        int before = 0, total = 0;
-#pragma unroll
-        for (int w = 0; w < kThreads / 32; ++w) {
-          int x = wcnt[w];
-          total += x;
-          if (w < warp) before += x;
-        }
-        if (c) {
-          int rank = running + before + __popc(bal & ((1u << lane) - 1u));
-          if (rank < kSlots) out[rank] = (int)s;
-        }
-        running += total;
-        __syncthreads();         // wcnt is rewritten by the next chunk
-      }
-      if (tid >= running && tid < kSlots) out[tid] = -1;
-      if (tid == 0) counts[b] = running;
+
+    const long long i0 = tile * kTile + off;
+    uint32_t hits = 0;
+    if (i0 < n_starts) {
+      hits = chain_run<K0, K1>(ch, smem, bufs + (it & 1) * blen, shift + off,
+                               shift, m, thr);
+      const long long valid = n_starts - i0;
+      if (valid < kRun) hits &= (1u << valid) - 1u;
     }
+    if (mode == kCount) {
+      cnt += __popc(hits);
+    } else if (mode == kMask) {
+      if (i0 < n_out)                  // n_out is a multiple of kRun
+        tsm::store_run_mask(mask + i0, hits);
+    } else {
+      tsm::rank_run_slots<kThreads>(hits, i0, pos + tile * kSlots,
+                                    counts + tile, wsum);
+    }
+    __syncthreads();                   // buffer and wsum free for reuse
   }
   if (mode == kCount) {
-    for (int off = 16; off > 0; off >>= 1)
-      cnt += __shfl_down_sync(0xffffffffu, cnt, off);
-    if (lane == 0 && cnt) atomicAdd(count, cnt);
+    for (int d = 16; d > 0; d >>= 1)
+      cnt += __shfl_down_sync(0xffffffffu, cnt, d);
+    if ((threadIdx.x & 31) == 0 && cnt) atomicAdd(count, cnt);
   }
 }
 
-// The chain from the host's descriptors; returns the shared-memory words of
-// its staged tables, or -1 if a descriptor is invalid.
-int load_chain(const int* desc, const void* const* tables, int n_stages,
-               const void* cd, int m, Chain* ch) {
+using Kernel = decltype(&stages_kernel<kNone, kWid>);
+
+// The instantiation for a chain: its own for each chain kind EngineFastPath
+// builds ([wid]; [wid, fpset]; [wm or sog, wid or fpset]), else the generic
+// one.  On the engines' own calls the generic one ran 10-13% slower at m = 8
+// and 1-3% at m = 32, against a spread of 0.6% (one-process A/B, H100).
+Kernel kernel_for(const Chain& ch) {
+  const int t = ch.s[ch.n - 1].kind;
+  if (ch.n == 1 && t == kWid) return stages_kernel<kNone, kWid>;
+  if (ch.n == 2 && (t == kWid || t == kFpset)) {
+    const bool fp = t == kFpset;
+    switch (ch.s[0].kind) {
+      case kWid:
+        if (fp) return stages_kernel<kWid, kFpset>;
+        break;
+      case kWm: return fp ? stages_kernel<kWm, kFpset>
+                          : stages_kernel<kWm, kWid>;
+      case kSog: return fp ? stages_kernel<kSog, kFpset>
+                           : stages_kernel<kSog, kWid>;
+      default: break;
+    }
+  }
+  return stages_kernel<kAny, kAny>;
+}
+
+// The chain from the host's descriptors, with each table's offset in shared
+// memory; returns the shared memory of the staged tables (bytes, a 16-byte
+// multiple), or -1 if a descriptor is invalid.
+long long load_chain(const int* desc, const void* const* tables,
+                     int n_stages, const void* cd, int m, Chain* ch) {
   if (n_stages < 1 || n_stages > kMaxChain) return -1;
   *ch = Chain{};
   ch->n = n_stages;
-  int words = 0, fpsets = 0;
+  ch->fp = -1;
+  long long words = 0;
   for (int i = 0; i < n_stages; ++i) {
     Stage& st = ch->s[i];
     st.kind = desc[5 * i];
@@ -215,7 +436,7 @@ int load_chain(const int* desc, const void* const* tables, int n_stages,
     st.c = desc[5 * i + 3];
     st.len = desc[5 * i + 4];
     st.table = (const uint32_t*)tables[i];
-    st.soff = words;
+    st.soff = (int)words;
     switch (st.kind) {
       case kWid:
         if (st.a < 0 || st.b < 1 || st.a + st.b > m || st.c < 1 ||
@@ -225,8 +446,9 @@ int load_chain(const int* desc, const void* const* tables, int n_stages,
         break;
       case kFpset:
         if (st.a < 1 || st.a > tsm::kMaxStages ||
-            !tsm::valid_stage_bits(st.b) || ++fpsets > 1 || !cd)
+            !tsm::valid_stage_bits(st.b) || ch->fp >= 0 || !cd)
           return -1;
+        ch->fp = i;
         ch->cd = tsm::load_cd(cd, st.a);
         break;
       case kWm:
@@ -242,7 +464,20 @@ int load_chain(const int* desc, const void* const* tables, int n_stages,
         return -1;
     }
   }
-  return words;
+  if (ch->fp >= 0) {
+    // the fp stages after the other tables: as many as keep the block within
+    // kSmemTarget, and the ones tested without a branch in any case
+    Stage& st = ch->s[ch->fp];
+    const long long fw = st.b / 32;
+    long long ks = (kSmemTarget - 2LL * buf_bytes(m) - words * 4) / (fw * 4);
+    if (ks < tsm::kFpBranchFree) ks = tsm::kFpBranchFree;
+    if (ks > st.a) ks = st.a;
+    ch->ks = (int)ks;
+    ch->roll = Rolling::make(m);
+    st.soff = (int)words;
+    words += ks * fw;
+  }
+  return (words * 4 + 15) / 16 * 16;
 }
 
 }  // namespace
@@ -251,10 +486,10 @@ int load_chain(const int* desc, const void* const* tables, int n_stages,
 // tables: host array of one device pointer per stage (fpset: k stages of
 // stage_bits bits each, contiguous); cd: host array of 2*k uint32 (C_0, D_0,
 // C_1, ...) for the fpset stage, or null.  mode 0 (count): out0 is one
-// zeroed int32; mode 1 (mask): out0 is (rows, 128) int8 with rows = n_out =
-// ceil((n-m+1)/128); mode 2 (slots): out0 is (n_sub, 16) int32 positions and
-// out1 (n_sub,) int32 counts, n_sub = n_out = ceil((n-m+1)/16384).  Every
-// output entry is written.  Requires n >= m.
+// zeroed int32; mode 1 (mask): out0 is (rows, 128) int8, 16-byte aligned,
+// with rows = n_out = ceil((n-m+1)/128); mode 2 (slots): out0 is (n_sub, 16)
+// int32 positions and out1 (n_sub,) int32 counts, n_sub = n_out =
+// ceil((n-m+1)/16384).  Every output entry is written.  Requires n >= m.
 extern "C" int tsm_stages(const void* text, long long n, int m, int sigma,
                           int guard, int mode, const void* desc,
                           const void* tables, int n_stages, const void* cd,
@@ -262,41 +497,33 @@ extern "C" int tsm_stages(const void* text, long long n, int m, int sigma,
                           int device, void* stream) {
   if (m < 1 || m > tsm::kMaxM || n < m) return (int)cudaErrorInvalidValue;
   Chain ch;
-  int tab_words = load_chain((const int*)desc, (const void* const*)tables,
-                             n_stages, cd, m, &ch);
-  if (tab_words < 0) return (int)cudaErrorInvalidValue;
+  const long long tab_bytes = load_chain(
+      (const int*)desc, (const void* const*)tables, n_stages, cd, m, &ch);
+  if (tab_bytes < 0) return (int)cudaErrorInvalidValue;
   const long long n_starts = n - m + 1;
-  long long tiles;
-  if (mode == kCount) {
-    tiles = (n_starts + kTile - 1) / kTile;
-  } else if (mode == kMask) {
-    if (n_out != (n_starts + 127) / 128) return (int)cudaErrorInvalidValue;
-    tiles = (n_out * 128 + kTile - 1) / kTile;
-  } else if (mode == kSlotsMode) {
-    if (n_out != (n_starts + kTile - 1) / kTile)
+  const long long tiles = (n_starts + kTile - 1) / kTile;
+  if (mode == kMask) {
+    if (n_out != (n_starts + 127) / 128 || ((uintptr_t)out0 & 15))
       return (int)cudaErrorInvalidValue;
-    tiles = n_out;
-  } else {
+  } else if (mode == kSlotsMode) {
+    if (n_out != tiles) return (int)cudaErrorInvalidValue;
+  } else if (mode != kCount) {
     return (int)cudaErrorInvalidValue;
   }
-  const size_t smem = (size_t)tab_words * 4 + kTile + m - 1;
+  const size_t smem = (size_t)tab_bytes + 2 * (size_t)buf_bytes(m);
   if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(stages_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  int sms = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  // sigma >= 256: no byte reaches it; sigma <= 0: every byte does
+  const int thr = guard && sigma < 256 ? (sigma > 0 ? sigma : 0) : -1;
+  const int shift = (int)((uintptr_t)text & 15);
+  const Kernel kernel = kernel_for(ch);
+  int grid = 0;
+  err = tsm::persistent_grid(kernel, kThreads, smem, tiles, device, &grid);
   if (err != cudaSuccess) return (int)err;
-  const long long want = (long long)sms * 4;
-  const int grid = (int)(tiles < want ? tiles : want);
-  stages_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const uint8_t*)text, n, m, sigma, guard, mode, n_starts,
-      mode == kMask ? n_out * 128 : 0, tiles, ch, tab_words, (int*)out0,
+  kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const uint8_t*)text - shift, n + shift, shift, m, thr, mode, n_starts,
+      mode == kMask ? n_out * 128 : 0, tiles, ch, (int)tab_bytes, (int*)out0,
       (int8_t*)out0, (int*)out0, (int*)out1);
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,11 @@
 // Shared device code of the persistent, double-buffered kernels
-// (cascade.cu, filter.cu, exact_count.cu's unguarded count): staging a tile
-// of text in shared memory with 16-byte cp.async copies, so that the next
-// tile's load overlaps this tile's work, and the host-side grid size.
+// (cascade.cu, filter.cu, stages.cu, exact_count.cu's unguarded count):
+// staging a tile of text in shared memory with 16-byte cp.async copies, so
+// that the next tile's load overlaps this tile's work, and the host-side
+// grid size; and the code of the kernels whose threads own runs of kRun
+// consecutive starts (filter.cu, stages.cu): a run's bytes from 16-byte
+// shared-memory loads at a block-uniform offset, its 32 results stored as
+// two 16-byte mask writes, or ranked block-wide into a sub-block's slots.
 //
 // A block walks tiles blockIdx.x, blockIdx.x + gridDim.x, ... of one fixed
 // number of bytes.  Each iteration issues the NEXT tile's copies into the
@@ -15,8 +19,9 @@
 // The copies go to L2 only (.cg): the text is read once.  A chunk past the
 // text's end is zero-filled by the copy itself (src-size < 16).  A text
 // whose address is not 16-byte aligned (a view at an odd offset) is staged
-// byte by byte instead: same bytes, no overlap (filter.cu instead stages
-// from the aligned address below such a text and offsets its tile).
+// byte by byte instead: same bytes, no overlap (filter.cu and stages.cu
+// instead stage from the aligned address below such a text and offset their
+// tile).
 
 #pragma once
 
@@ -137,6 +142,91 @@ template <int kWords>
 __device__ __forceinline__ uint32_t byte_of(const uint32_t (&w)[kWords],
                                             int j) {
   return (w[j >> 2] >> (8 * (j & 3))) & 0xFFu;
+}
+
+// ---------------------------------------------------------------------------
+// runs of kRun consecutive starts per thread (filter.cu, stages.cu)
+// ---------------------------------------------------------------------------
+
+constexpr int kRun = 32;          // consecutive starts per thread
+constexpr int kSlots = 16;        // BLOCK_SLOTS: candidates kept per sub-block
+
+// Bytes of one text buffer of a tile of `tile` starts whose text sits at an
+// offset shift < 16: the starts and the (m-1)-byte halo, and the chunks
+// after them that a run's shifted loads may touch (up to 48 bytes from the
+// 16-byte chunk holding byte p + m).
+__host__ __device__ inline int run_buf_bytes(int tile, int m) {
+  return (tile + m + 30) / 16 * 16 + 16;
+}
+
+// The 4 * kOut bytes at b + p as words (b 16-byte aligned, p % 16 == s, s
+// uniform over the block): kOut / 4 + 1 aligned loads, funnel-shifted by s.
+template <int kOut>
+__device__ __forceinline__ void words_at(const uint8_t* b, int p, int s,
+                                         uint32_t (&out)[kOut]) {
+  const uint4* c = reinterpret_cast<const uint4*>(b) + (p >> 4);
+  uint32_t w[kOut + 4];
+#pragma unroll
+  for (int i = 0; i <= kOut / 4; ++i) {
+    const uint4 h = c[i];
+    w[4 * i] = h.x, w[4 * i + 1] = h.y, w[4 * i + 2] = h.z,
+    w[4 * i + 3] = h.w;
+  }
+  shifted_words(w, s, out);
+}
+
+// Four bits of a hit mask as four bytes of 0 or 1 (the bits land on bits 0,
+// 8, 16 and 24, with no carries between them).
+__device__ __forceinline__ uint32_t spread4(uint32_t bits) {
+  return ((bits & 0xFu) * 0x00204081u) & 0x01010101u;
+}
+
+// A run's kRun results (bit j: start j) as kRun int8 of 0 or 1 at out,
+// 16-byte aligned: two 16-byte stores (a 128-start mask row is 4 threads).
+__device__ __forceinline__ void store_run_mask(int8_t* out, uint32_t hits) {
+  uint4* o = reinterpret_cast<uint4*>(out);
+  o[0] = make_uint4(spread4(hits), spread4(hits >> 4), spread4(hits >> 8),
+                    spread4(hits >> 12));
+  o[1] = make_uint4(spread4(hits >> 16), spread4(hits >> 20),
+                    spread4(hits >> 24), spread4(hits >> 28));
+}
+
+// Block-wide, over kThreads threads whose runs tile one sub-block in thread
+// order: the sub-block's first kSlots candidates in position order into
+// out[0..kSlots) (-1 where fewer) and its candidate count into *count.  A
+// run's rank is an exclusive prefix of the runs' __popc: a __shfl_up_sync
+// scan in each warp, then the totals of the warps before it (wsum, kThreads
+// / 32 ints of shared memory).  i0 is the run's first start.  Every thread
+// must call it; the caller syncs before wsum is written again.
+template <int kThreads>
+__device__ __forceinline__ void rank_run_slots(uint32_t hits, long long i0,
+                                               int* __restrict__ out,
+                                               int* __restrict__ count,
+                                               int* wsum) {
+  constexpr int kWarps = kThreads / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int cnt = __popc(hits);
+  int incl = cnt;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, incl, d);
+    if (lane >= d) incl += y;
+  }
+  if (lane == 31) wsum[warp] = incl;
+  __syncthreads();
+  int before = 0, total = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    const int x = wsum[w];
+    total += x;
+    before += w < warp ? x : 0;
+  }
+  int rank = before + incl - cnt;
+  for (uint32_t h = hits; h && rank < kSlots; h &= h - 1, ++rank)
+    out[rank] = (int)(i0 + __ffs(h) - 1);
+  if ((int)threadIdx.x >= total && threadIdx.x < kSlots)
+    out[threadIdx.x] = -1;
+  if (threadIdx.x == 0) *count = total;
 }
 
 }  // namespace tsm

@@ -116,6 +116,43 @@ def _check_chain(text, chain, tables, *, m, sigma, mode, guard, flat):
             raise ValueError(f"unknown stage kind {kind!r}")
 
 
+def chain_args(chain, tables):
+    """tsm_stages' chain arguments: (desc, tables, cd) as ctypes arrays, 5
+    int32 per stage (kind, a, b, c, len), one table pointer per stage, and
+    the fpset stage's (C, D) pairs or None."""
+    desc = (ctypes.c_int32 * (5 * len(chain)))()
+    ptrs = (ctypes.c_void_p * len(chain))()
+    cd = None
+    for i, ((kind, params), tab) in enumerate(zip(chain, tables)):
+        if kind == "wid":
+            a, b, c, length = *params, tab.numel()
+        elif kind == "fpset":
+            a, b, c, length = params[0], int(tab.shape[1]) * 32, 0, 0
+            cd = _cd_host(params[1], params[0])
+        elif kind == "wm":
+            a, b, c, length = 0, 0, 0, tab.numel()
+        else:
+            a, b, c, length = 0, 0, params[1], tab.numel()
+        desc[5 * i:5 * i + 5] = [_KINDS[kind], a, b, c, length]
+        ptrs[i] = tab.data_ptr()
+    return (ctypes.cast(desc, ctypes.c_void_p),
+            ctypes.cast(ptrs, ctypes.c_void_p), cd)
+
+
+def stage_outputs(mode, n_starts, dev):
+    """(out0, out1 or None, n_out): the outputs tsm_stages writes in mode
+    (count: one zeroed int32)."""
+    if mode == "count":
+        return torch.zeros((), dtype=torch.int32, device=dev), None, 0
+    if mode == "mask":
+        n_out = cdiv(n_starts, ROW)
+        return torch.empty((n_out, ROW), dtype=torch.int8, device=dev), \
+            None, n_out
+    n_out = cdiv(n_starts, SUB_BLOCK)
+    return (torch.empty((n_out, BLOCK_SLOTS), dtype=torch.int32, device=dev),
+            torch.empty((n_out,), dtype=torch.int32, device=dev), n_out)
+
+
 def stages(text: torch.Tensor, chain, tables, *, m: int, sigma: int,
            mode: str, guard: bool = False, flat: bool = False):
     """Run a stage chain over every start of text (n >= m required).
@@ -133,39 +170,11 @@ def stages(text: torch.Tensor, chain, tables, *, m: int, sigma: int,
         return stages_plain(text, chain, tables, m=m, sigma=sigma, mode=mode,
                             guard=guard)
     n = int(text.shape[0])
-    n_starts = n - m + 1
-    dev = text.device
-    desc = (ctypes.c_int32 * (5 * len(chain)))()
-    ptrs = (ctypes.c_void_p * len(chain))()
-    cd = None
-    for i, ((kind, params), tab) in enumerate(zip(chain, tables)):
-        if kind == "wid":
-            a, b, c, length = *params, tab.numel()
-        elif kind == "fpset":
-            a, b, c, length = params[0], int(tab.shape[1]) * 32, 0, 0
-            cd = _cd_host(params[1], params[0])
-        elif kind == "wm":
-            a, b, c, length = 0, 0, 0, tab.numel()
-        else:
-            a, b, c, length = 0, 0, params[1], tab.numel()
-        desc[5 * i:5 * i + 5] = [_KINDS[kind], a, b, c, length]
-        ptrs[i] = tab.data_ptr()
-    out1 = None
-    if mode == "count":
-        out0 = torch.zeros((), dtype=torch.int32, device=dev)
-        n_out = 0
-    elif mode == "mask":
-        n_out = cdiv(n_starts, ROW)
-        out0 = torch.empty((n_out, ROW), dtype=torch.int8, device=dev)
-    else:
-        n_out = cdiv(n_starts, SUB_BLOCK)
-        out0 = torch.empty((n_out, BLOCK_SLOTS), dtype=torch.int32,
-                           device=dev)
-        out1 = torch.empty((n_out,), dtype=torch.int32, device=dev)
+    desc, ptrs, cd = chain_args(chain, tables)
+    out0, out1, n_out = stage_outputs(mode, n - m + 1, text.device)
     lib, dev_idx, stream = _launch_args(text)
     rc = lib.tsm_stages(text.data_ptr(), n, m, sigma, int(guard),
-                        MODES[mode], ctypes.cast(desc, ctypes.c_void_p),
-                        ctypes.cast(ptrs, ctypes.c_void_p), len(chain), cd,
+                        MODES[mode], desc, ptrs, len(chain), cd,
                         out0.data_ptr(),
                         None if out1 is None else out1.data_ptr(), n_out,
                         dev_idx, stream)
