@@ -11,7 +11,11 @@
    unguarded exact count and the cascade also on start counts around
    their runs and tiles, at m=1 (and 4097 for the cascade), sigma=256, a
    text at an odd address (exact count), and 131,072-bit stages with phase
-   1 in shared memory and past it, rows overflowing (cascade);
+   1 in shared memory and past it, rows overflowing (cascade); exact_mask
+   and the exact count, guard on and off, on views at every address mod
+   16, start counts around their run, mask row and tile, a positions
+   piece of about 2^18 starts at an odd address and n = m, at sigma 2 to
+   256 (sigma 20 with bytes in [20, 32)) over a random bitmap;
    filter_mask and filter_slots also on start counts around their run,
    mask row and tile at m = 1, 31 and 4097, sigma = 4 and 256, on views
    at every address mod 16, on 4096- to 2^18-bit stages (k = 1 and 32)
@@ -48,7 +52,8 @@
    first held against its plain version, exactly, on the inputs the main
    paths gave it (the cascade at every bench tier's stages, filter_mask
    at dense32's 7 and saturated's 32 stages, exact_mask over the whole
-   corpus, the guarded count over the padded one), and the positions phase
+   corpus and over one positions piece, the guarded count over the padded
+   one), and the positions phase
    is profiled per path.  The launches are also weighted by the size they
    ran at, and the filter launches at addresses that are not 16-byte
    aligned (views) counted; each timed stage chain prints the fraction of
@@ -86,10 +91,9 @@ PAT_SEED = 8 + M_CELL
 #: dense32's plants of pattern 0: every 256 bytes over [1 MiB, 3 MiB)
 PLANTS = range(MiB, 3 * MiB, 256)
 MAX_RETRIES = 6
-#: the unguarded exact count's run (consecutive starts per thread) and tile
-#: (starts per block iteration), and the cascade's: the kernel checks take
-#: start counts around both
-EXACT_RUN, EXACT_TILE = 32, 8192
+#: the cascade's run (consecutive starts per thread) and tile (starts per
+#: block iteration; the exact kernels' are kernel_cases'): the kernel checks
+#: take start counts around both
 CASCADE_RUN, CASCADE_TILE = 16, 4096
 #: filter.cu's run and tile (one 16,384-start sub-block)
 FILTER_RUN, FILTER_TILE = 32, 16384
@@ -646,7 +650,8 @@ def stage_edge_checks(ck):
 def kernel_checks():
     import numpy as np
     from tpu_smatcher_torch.core import datagen
-    from tpu_smatcher_torch.kernel_cases import edge_starts, random_stages
+    from tpu_smatcher_torch.kernel_cases import (EXACT_RUN, EXACT_TILE,
+                                                 edge_starts, random_stages)
     from tpu_smatcher_torch.core.alphabet import Alphabet
     from tpu_smatcher_torch.core.patterns import PatternSet
 
@@ -667,7 +672,7 @@ def kernel_checks():
     ck.exact("all-match", zeros,
              PatternSet(np.zeros((1, 8), np.uint8), Alphabet.dna()))
     # start counts around a run and a tile, m=1, sigma=256, and a text at
-    # an odd address (staged without cp.async)
+    # an odd address (staged from the aligned address below it)
     for sigma, m, p in ((4, 8, 200), (4, 1, 2), (256, 2, 200)):
         text, pats = case(sigma, 3 * EXACT_TILE, m, p, seed=sigma + m)
         for s in edge_starts(EXACT_RUN, EXACT_TILE):
@@ -690,6 +695,7 @@ def kernel_checks():
     alias[16:] = 4                           # a shard padded with sigma
     ck.exact_guarded("pad alias", alias, PatternSet(
         np.array([[0, 0, 0, 0, 0, 0, 1, 0]], np.uint8), Alphabet.dna()))
+    exact_edge_checks(ck)
 
     log("kernel vs plain (cascade, tolerance 0):")
     for m in (8, 16, 32, 129, 513):
@@ -740,6 +746,40 @@ def kernel_checks():
     filter_edge_checks(ck)
     stage_checks(ck, case)
     return ck
+
+
+def exact_edge_checks(ck):
+    """exact_mask and exact_count, guard on and off, against their plain
+    versions on kernel_cases' exact edge cases (views at every address mod
+    16, start counts around the run, a mask row and the tile, a positions
+    piece at an odd address, n = m; bytes >= sigma planted, a random
+    bitmap), each mask summing to the guarded count."""
+    import torch
+    from tpu_smatcher_torch import kernel_cases as kc
+    from tpu_smatcher_torch.ops import cuda_filter as cf
+    for sigma, m in kc.EXACT_EDGE_CASES:
+        views, bm = kc.exact_edge_case(sigma, m, "cuda")
+        args = dict(m=m, sigma=sigma)
+        dropped = 0
+        for i, t in enumerate(views):
+            label = f"edge sigma={sigma} m={m} view {i}"
+            mask = cf.exact_mask(t, bm, **args)
+            k = int(cf.exact_count(t, bm, guard=True, **args))
+            u = int(cf.exact_count(t, bm, **args))
+            torch.cuda.synchronize()
+            ck._err("exact_mask",
+                    _diff(mask, cf.exact_mask_plain(t, bm, **args)), label)
+            ck._err("exact_count_guard", abs(k - int(cf.exact_count_plain(
+                t, bm, guard=True, **args))), label)
+            ck._err("exact_count", abs(u - int(cf.exact_count_plain(
+                t, bm, **args))), label)
+            assert int(mask.sum()) == k, f"mask sum != guarded count, {label}"
+            dropped += u - k
+        assert (dropped > 0) == (sigma < 256), f"guard, sigma={sigma}"
+        starts = [int(v.shape[0]) - m + 1 for v in views[16:]]
+        log(f"  exact edge sigma={sigma} m={m}: {len(views)} views (every "
+            f"address mod 16; starts {starts}), guard dropped {dropped}: "
+            f"max_abs_err 0")
 
 
 def filter_edge_checks(ck):
@@ -1225,8 +1265,7 @@ def path_times(card, label, eng, t, scan):
 
 
 #: the __global__ functions of tpu_smatcher_torch/csrc
-KERNEL_SYMBOLS = ("exact_count_kernel", "exact_count_guard_kernel",
-                  "exact_mask_kernel", "cascade_kernel", "filter_kernel",
+KERNEL_SYMBOLS = ("exact_kernel", "cascade_kernel", "filter_kernel",
                   "words_kernel", "stages_kernel")
 #: profiler sessions profile() tries for one with every port kernel's
 #: record: torch.profiler drops kernel records now and then in a long run
@@ -1327,6 +1366,19 @@ def positions_timings(card, ck, tdev, ext, engines):
         lambda: cf.exact_mask_plain(tdev, bm, **args),
         bound(n + bm.numel() * 4 + rows * cf.ROW,
               (n - ft.m + 1) * (EXACT_START_OPS + GUARD_START_OPS)))}
+    # a piece of the size FastScanner._drive cuts after the first overflow
+    # (cap/2 matches at the text's density), one byte past its second
+    # piece: a view at an odd address
+    chunk = max(eng.cap // 2,
+                (eng.cap // 2) * (n - ft.m + 1) // TIERS[0][3])
+    piece = tdev[chunk + 1:2 * chunk + ft.m]
+    kernel_time(card, ck, f"exact positions piece ({chunk} starts at "
+                f"offset {chunk + 1})", "exact_mask",
+                lambda: cf.exact_mask(piece, bm, **args),
+                lambda: cf.exact_mask_plain(piece, bm, **args),
+                bound(chunk + ft.m - 1 + bm.numel() * 4
+                      + -(-chunk // cf.ROW) * cf.ROW,
+                      chunk * (EXACT_START_OPS + GUARD_START_OPS)))
     ne = int(ext.shape[0])
     per_kernel["exact_count_guard"] = kernel_time(
         card, ck, "core, padded text", "exact_count_guard",

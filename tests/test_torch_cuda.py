@@ -33,9 +33,8 @@ def cuda():
     return torch.device("cuda")
 
 
-#: the unguarded exact count's run (starts per thread) and tile (starts per
-#: block iteration); the cascade's
-EXACT_RUN, EXACT_TILE = 32, 8192
+#: the cascade's run (starts per thread) and tile (starts per block
+#: iteration)
 CASCADE_RUN, CASCADE_TILE = 16, 4096
 
 
@@ -45,11 +44,12 @@ def test_exact_kernel_matches_plain(cuda, sigma, m, p):
     """The unguarded exact count equals its plain version and the ground
     truth on short, ragged and long texts, on start counts around a run
     and a tile, at m=1 and sigma=256, and on a text at an odd address
-    (staged without cp.async)."""
+    (staged from the aligned address below it)."""
     text, pats = make_case(sigma, m, p, 300_007, seed=3 * sigma + m)
     bm = tfast.build_fast(pats.codes, sigma, device=cuda).bitmaps[0]
     ns = [m, 127, 300_007] + [m - 1 + s
-                              for s in edge_starts(EXACT_RUN, EXACT_TILE)]
+                              for s in edge_starts(kc.EXACT_RUN,
+                                                 kc.EXACT_TILE)]
     for n in ns:
         t = torch.from_numpy(text[:n].copy()).to(cuda)
         before = cf.LAUNCHES["exact_count"]
@@ -402,6 +402,35 @@ def test_exact_mask_and_guard_kernels_match_plain(cuda, sigma, m):
         # unguarded, kernel and plain are one function of any bytes
         assert int(cf.exact_count(t, bm, m=m, sigma=sigma)) == \
             int(cf.exact_count_plain(t, bm, m=m, sigma=sigma))
+
+
+@pytest.mark.parametrize("sigma,m", kc.EXACT_EDGE_CASES)
+def test_exact_kernels_at_edges_match_plain(cuda, sigma, m):
+    """exact_mask and exact_count, guard on and off, equal their plain
+    versions bit for bit on kernel_cases' exact edge cases: views at every
+    address mod 16, start counts around a run, a mask row and a tile, a
+    positions piece of about 2^18 starts at an odd address and n = m;
+    bytes >= sigma planted (at sigma = 20 also bytes in [20, 32), which
+    the guard drops and the rolling id takes as clean), a random bitmap.
+    Each mask sums to the guarded count; the guard drops windows wherever
+    sigma < 256."""
+    views, bm = kc.exact_edge_case(sigma, m, cuda)
+    dropped = 0
+    for t in views:
+        before = dict(cf.LAUNCHES)
+        mask = cf.exact_mask(t, bm, m=m, sigma=sigma)
+        guarded = cf.exact_count(t, bm, m=m, sigma=sigma, guard=True)
+        unguarded = cf.exact_count(t, bm, m=m, sigma=sigma)
+        torch.cuda.synchronize()
+        for name in ("exact_mask", "exact_count_guard", "exact_count"):
+            assert cf.LAUNCHES[name] == before[name] + 1, name
+        assert torch.equal(mask, cf.exact_mask_plain(t, bm, m=m, sigma=sigma))
+        assert int(guarded) == int(mask.sum()) == int(cf.exact_count_plain(
+            t, bm, m=m, sigma=sigma, guard=True))
+        assert int(unguarded) == int(cf.exact_count_plain(t, bm, m=m,
+                                                          sigma=sigma))
+        dropped += int(unguarded) - int(guarded)
+    assert (dropped > 0) == (sigma < 256)
 
 
 @pytest.mark.parametrize("sigma,m,p_size,n", [CASES[2], CASES[3]])

@@ -44,8 +44,8 @@ BEFORE = 0xEE
 STAGES = [(1, 4096, 0.5), (3, 4096, 0.1), (7, 16384, 0.3)]
 
 
-def _buf_bytes(m):
-    return (TILE + m + 30) // 16 * 16 + 16
+def _buf_bytes(m, tile=TILE):
+    return (tile + m + 30) // 16 * 16 + 16
 
 
 def shared_stages(k, stage_bits, m):
@@ -56,18 +56,18 @@ def shared_stages(k, stage_bits, m):
     return min(k, max(BRANCH_FREE, room // (stage_bits // 8)))
 
 
-def _tile_buffers(text, shift, m):
+def _tile_buffers(text, shift, m, tile=TILE):
     """(tiles, blen) uint8: each tile's text buffer, copied from the aligned
     address `shift` bytes below the text: buffer byte x of tile t is memory
-    byte t*TILE + x, memory being `shift` bytes before the text, the text,
+    byte t*tile + x, memory being `shift` bytes before the text, the text,
     and zeros past it (the copies' zero fill)."""
     n = len(text)
-    tiles = -(-(n - m + 1) // TILE)
-    blen = _buf_bytes(m)
-    mem = np.zeros(tiles * TILE + blen, np.uint8)
+    tiles = -(-(n - m + 1) // tile)
+    blen = _buf_bytes(m, tile)
+    mem = np.zeros(tiles * tile + blen, np.uint8)
     mem[:shift] = BEFORE
     mem[shift:shift + n] = text
-    idx = np.arange(tiles)[:, None] * TILE + np.arange(blen)[None, :]
+    idx = np.arange(tiles)[:, None] * tile + np.arange(blen)[None, :]
     return mem[idx]
 
 

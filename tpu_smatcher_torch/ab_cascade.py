@@ -3,6 +3,12 @@ on one card, in one process, interleaved, on bench.py's 256 MiB DNA corpus
 (text seed 7; pattern seed 8 at m=8 and 8+m otherwise):
 
   exact_count   the unguarded exact count (tsm_exact_count), m=8 p=10k
+  exact_mask    the exact tier's mask (tsm_exact_mask), m=8 p=10k, over
+                the whole text and over 8 consecutive pieces of positions'
+                size after its first overflow (FastScanner._drive), each a
+                view at an odd address
+  exact_count_guard  the guarded exact count (tsm_exact_count, guard=1),
+                m=8 p=10k, on the text + m-1 pad bytes as core() calls it
   cascade       the cascade (tsm_cascade) at m=16 p=10k, m=32 p=10k, m=32
                 p=30k and m=32 p=100k, each with its route's (k1, kt)
   filter_slots  filter.cu's slots mode (tsm_filter_slots) on slot32: m=32
@@ -45,6 +51,8 @@ import sys
 
 #: kernel name -> (source, C function)
 KERNELS = {"exact_count": ("exact_count.cu", "tsm_exact_count"),
+           "exact_count_guard": ("exact_count.cu", "tsm_exact_count"),
+           "exact_mask": ("exact_count.cu", "tsm_exact_mask"),
            "cascade": ("cascade.cu", "tsm_cascade"),
            "filter_slots": ("filter.cu", "tsm_filter_slots"),
            "filter_mask": ("filter.cu", "tsm_filter_mask"),
@@ -126,6 +134,61 @@ def launcher(text, eng):
         assert rc == 0, f"launch failed: cudaError {rc}"
         return slots, ovf
     return "cascade", f"m={m} k1={k1} kt={kt}", launch
+
+
+def exact_launchers(t, eng):
+    """[(kernel, cell, label, launch(fn) -> outputs)] of the exact tier's
+    guarded kernels as the main paths call them: exact_mask over the whole
+    text and over 8 consecutive pieces of the size of positions' pieces
+    after its first overflow (cap/2 matches at the text's density), views
+    at odd addresses; the guarded count over the text + m-1 pad bytes (as
+    core() calls it)."""
+    import torch
+    from tpu_smatcher_torch.ops import cuda_filter as cf
+    from tpu_smatcher_torch.ops.common import bits_per_char, cdiv
+    ft = eng.ft
+    m, sigma, bm = ft.m, ft.sigma, ft.bitmaps[0]
+    bits, nw = bits_per_char(sigma), int(bm.shape[0])
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    dev = torch.cuda.current_device()
+    owned = int(t.shape[0]) - m + 1
+    total = int(cf.exact_count_plain(t, bm, m=m, sigma=sigma))
+    chunk = max(eng.cap // 2, min(owned // 2,
+                                  (eng.cap // 2) * owned // total))
+    # the pieces begin one byte past positions' own (multiples of chunk,
+    # even on the bench corpus), so that every one is at an odd address
+    pieces = [t[s + 1:s + 1 + chunk + m - 1]
+              for s in range(chunk, 9 * chunk, chunk)]
+    ext = torch.cat([t, torch.full((m - 1,), sigma, dtype=torch.uint8,
+                                   device="cuda")])
+
+    def masks(views):
+        def launch(fn):
+            out = []
+            for v in views:
+                n = int(v.shape[0])
+                rows = cdiv(n - m + 1, cf.ROW)
+                mask = torch.empty((rows, cf.ROW), dtype=torch.int8,
+                                   device="cuda")
+                rc = fn(v.data_ptr(), n, m, bits, sigma, bm.data_ptr(), nw,
+                        mask.data_ptr(), rows, dev, stream)
+                assert rc == 0, f"launch failed: cudaError {rc}"
+                out.append(mask)
+            return tuple(out)
+        return launch
+
+    def guarded(fn):
+        out = torch.zeros((), dtype=torch.int32, device="cuda")
+        rc = fn(ext.data_ptr(), int(ext.shape[0]), m, bits, sigma, 1,
+                bm.data_ptr(), nw, out.data_ptr(), dev, stream)
+        assert rc == 0, f"launch failed: cudaError {rc}"
+        return (out,)
+    offsets = sorted({v.data_ptr() % 16 for v in pieces})
+    return [("exact_mask", "text", f"m={m} n=2^28", masks([t])),
+            ("exact_mask", "pieces", f"m={m} 8 pieces of {chunk} starts, "
+             f"addresses {offsets} mod 16", masks(pieces)),
+            ("exact_count_guard", "padded", f"m={m} n=2^28+{m - 1}",
+             guarded)]
 
 
 def filter_launcher(text, ft, k, kernel):
@@ -334,6 +397,14 @@ def main(argv=None) -> int:
         if kernel in builds:
             compare(builds[kernel], f"tier {name} (p={p})",
                     f"{kernel} {shape} n=2^28", launch, args.reps)
+    if {"exact_mask", "exact_count_guard"} & set(builds):
+        pats = datagen.generate_patterns(text, 10_000, 8, ab,
+                                         frac_present=0.5, seed=8)
+        eng = FastScanner(build_fast(pats.codes, 4, device="cuda"))
+        for kernel, cell, shape, launch in exact_launchers(t, eng):
+            if kernel in builds:
+                compare(builds[kernel], f"exact {cell}", f"{kernel} {shape}",
+                        launch, args.reps)
     for cell, kernel in CELLS:
         if kernel not in builds:
             continue

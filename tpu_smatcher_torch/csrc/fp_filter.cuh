@@ -185,12 +185,6 @@ __device__ __forceinline__ void roll_fps(const Rolling& r, uint32_t out,
 
 constexpr int kFpBranchFree = 3;   // stages tested without a branch
 
-// Bit `key` of a bitmap in shared memory.
-__device__ __forceinline__ uint32_t smem_bit(const uint32_t* bm,
-                                             uint32_t key) {
-  return (bm[key >> 5] >> (key & 31)) & 1u;
-}
-
 // The three fingerprints (in uint32, not masked) of the m bytes at b + p, b
 // 16-byte aligned in shared memory and s = p % 16 uniform over the block:
 // horner_fps where p is aligned; else Horner's rule from the last byte, the

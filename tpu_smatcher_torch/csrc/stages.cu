@@ -53,7 +53,7 @@
 //     The bitmap, guard and fp stages roll over the run, so each start
 //     costs O(1) whatever its hit:
 //       wid    s = s * 2^bits + t[i+off+d-1], key = s & (2^(d*bits) - 1),
-//              one multiply-add per start (exact_count.cu's rolling id); a
+//              one multiply-add per start (wid_run.cuh's wid_run); a
 //              run holding a byte >= 2^bits, or a bitmap smaller than
 //              2^(d*bits) bits, takes a per-start loop of the OR key, so any
 //              bytes stay exact;
@@ -64,7 +64,8 @@
 //              left alive;
 //       guard  the bytes >= sigma entering the run's windows as a 32-bit
 //              mask (__vcmpgeu4), smeared over the m starts whose window
-//              holds each, and the last such byte of the first window;
+//              holds each, and the last such byte of the first window
+//              (wid_run.cuh's guard_run);
 //     the value stages pass nearly every start on the bench sets (wm and
 //     sog 1.000 at m = 8 and 32, DNA), so they come last where the other
 //     stages leave few starts (chain_run):
@@ -91,6 +92,7 @@
 
 #include "fp_filter.cuh"
 #include "tile_pipeline.cuh"
+#include "wid_run.cuh"
 
 namespace {
 
@@ -132,53 +134,17 @@ __host__ __device__ inline int buf_bytes(int m) {
   return tsm::run_buf_bytes(kTile, m);
 }
 
-// The 32 bytes at b + p + x as words (p % 16 == s).
-__device__ __forceinline__ void entering(const uint8_t* b, int p, int s,
-                                         int x, uint32_t (&in)[8]) {
-  tsm::words_at(b, p + x, (s + x) & 15, in);
-}
-
 __device__ __forceinline__ uint32_t lookup0(const uint32_t* tab, uint32_t len,
                                             uint32_t i) {
   return i < len ? tab[i] : 0u;
 }
 
 // wid(off, d, bits) over the run at b + p; tab: the bitmap in shared memory.
-__device__ __forceinline__ uint32_t wid_run(const Stage& st,
-                                            const uint32_t* tab,
-                                            const uint8_t* b, int p, int s) {
-  const int off = st.a, d = st.b, bits = st.c;
-  const uint32_t nbits = (uint32_t)st.len * 32u;
-  const uint32_t radix = 1u << bits, kmask = (1u << (d * bits)) - 1u;
-  // a byte >= 2^bits in any lane of a word
-  const uint32_t dirty_bytes = 0x01010101u * (0xFFu & ~(radix - 1u));
-  uint32_t in[8];                    // bytes [off+d-1, off+d+31) of the run
-  entering(b, p, s, off + d - 1, in);
-  uint32_t dirty = nbits <= kmask;   // a key may fall past the bitmap
-#pragma unroll
-  for (int k = 0; k < 8; ++k) dirty |= in[k] & dirty_bytes;
-  uint32_t key = 0;
-  for (int j = 0; j < d - 1; ++j) {  // the first window's first d-1 bytes
-    const uint32_t c = b[p + off + j];
-    dirty |= c >> bits;
-    key = key * radix + c;
-  }
-  uint32_t hits = 0;
-  if (!dirty) {
-    // on bytes below 2^bits, key * 2^bits + byte is (key << bits) | byte
-#pragma unroll
-    for (int j = 0; j < kRun; ++j) {
-      key = key * radix + byte_of(in, j);
-      hits |= tsm::smem_bit(tab, key & kmask) << j;
-    }
-  } else {
-    for (int j = 0; j < kRun; ++j) {
-      uint32_t k = 0;
-      for (int i = 0; i < d; ++i) k = (k << bits) | b[p + off + j + i];
-      hits |= (k < nbits ? tsm::smem_bit(tab, k) : 0u) << j;
-    }
-  }
-  return hits;
+__device__ __forceinline__ uint32_t wid_stage(const Stage& st,
+                                              const uint32_t* tab,
+                                              const uint8_t* b, int p,
+                                              int s) {
+  return tsm::wid_run(tab, st.len, b, p, s, st.a, st.b, st.c);
 }
 
 // sog(sigma) over the run: the shift-or register over grams 0 .. m+30 of
@@ -196,7 +162,7 @@ __device__ __forceinline__ uint32_t sog_run(const Stage& st,
     y = z;
   }
   uint32_t in[8];                    // bytes [m-1, m+31): gram j's third
-  entering(b, p, s, m - 1, in);
+  tsm::entering(b, p, s, m - 1, in);
   const int top = m - 3;
   uint32_t hits = 0;
 #pragma unroll
@@ -208,36 +174,6 @@ __device__ __forceinline__ uint32_t sog_run(const Stage& st,
     y = z;
   }
   return hits;
-}
-
-// Four bytes of 0 or 0xFF (a __vcmpgeu4 result) as four bits.
-__device__ __forceinline__ uint32_t bits4(uint32_t x) {
-  return ((x & 0x01010101u) * 0x10204080u) >> 28;
-}
-
-// The pad guard over the run: the starts whose window holds no byte >= thr
-// (0 <= thr <= 255).
-__device__ __forceinline__ uint32_t guard_run(const uint8_t* b, int p, int s,
-                                              int m, int thr) {
-  int last = -1;                     // the first window's last such byte
-  for (int j = 0; j < m - 1; ++j)
-    if ((int)b[p + j] >= thr) last = j;
-  uint32_t in[8];                    // bytes [m-1, m+31): byte m-1+j enters
-  entering(b, p, s, m - 1, in);      // start j's window
-  const uint32_t t4 = 0x01010101u * (uint32_t)thr;
-  uint32_t enter = 0;
-#pragma unroll
-  for (int k = 0; k < 8; ++k) enter |= bits4(__vcmpgeu4(in[k], t4)) << (4 * k);
-  // byte m-1+j lies in the windows of starts j .. j+m-1: smear each bit of
-  // enter over the m bits from it up (r = OR of enter << t, t < c)
-  uint32_t r = enter;
-  for (int c = 1; c < m && c < 32;) {
-    const int step = c < m - c ? c : m - c;
-    r |= r << step;
-    c += step;
-  }
-  const uint32_t first = last < 0 ? 0u : last >= 31 ? ~0u : (2u << last) - 1u;
-  return ~(r | first);
 }
 
 // A value stage (wm, sog) per start, for the starts in live only (a subset
@@ -284,24 +220,24 @@ __device__ __forceinline__ uint32_t chain_run(const Chain& ch,
                                               const uint32_t* smem,
                                               const uint8_t* b, int p, int s,
                                               int m, int thr) {
-  uint32_t live = thr >= 0 ? guard_run(b, p, s, m, thr) : ~0u;
+  uint32_t live = thr >= 0 ? tsm::guard_run(b, p, s, m, thr) : ~0u;
   const bool fp = ch.fp >= 0;
   if constexpr (K0 == kAny) {
     for (int i = 0; i < ch.n; ++i) {
       const Stage& st = ch.s[i];
       if (st.kind == kWid)
-        live &= wid_run(st, smem + st.soff, b, p, s);
+        live &= wid_stage(st, smem + st.soff, b, p, s);
       else if (st.kind == kSog && !fp)
         live &= sog_run(st, smem + st.soff, b, p, s, m);
     }
   } else if constexpr (K0 == kWid) {
-    live &= wid_run(ch.s[0], smem + ch.s[0].soff, b, p, s);
+    live &= wid_stage(ch.s[0], smem + ch.s[0].soff, b, p, s);
   } else if constexpr (K0 == kSog && K1 == kWid) {
     live &= sog_run(ch.s[0], smem + ch.s[0].soff, b, p, s, m);
   }
   if constexpr (K1 == kWid) {
     const Stage& st = ch.s[ch.n - 1];
-    live &= wid_run(st, smem + st.soff, b, p, s);
+    live &= wid_stage(st, smem + st.soff, b, p, s);
   }
   if constexpr (K1 == kFpset || K1 == kAny) {
     if (fp && live) {

@@ -1,9 +1,9 @@
 // Shared device code of the persistent, double-buffered kernels
-// (cascade.cu, filter.cu, stages.cu, exact_count.cu's unguarded count):
-// staging a tile of text in shared memory with 16-byte cp.async copies, so
-// that the next tile's load overlaps this tile's work, and the host-side
-// grid size; and the code of the kernels whose threads own runs of kRun
-// consecutive starts (filter.cu, stages.cu): a run's bytes from 16-byte
+// (cascade.cu, filter.cu, stages.cu, exact_count.cu): staging a tile of
+// text in shared memory with 16-byte cp.async copies, so that the next
+// tile's load overlaps this tile's work, and the host-side grid size; and
+// the code of the kernels whose threads own runs of kRun consecutive starts
+// (filter.cu, stages.cu, exact_count.cu): a run's bytes from 16-byte
 // shared-memory loads at a block-uniform offset, its 32 results stored as
 // two 16-byte mask writes, or ranked block-wide into a sub-block's slots.
 //
@@ -19,9 +19,9 @@
 // The copies go to L2 only (.cg): the text is read once.  A chunk past the
 // text's end is zero-filled by the copy itself (src-size < 16).  A text
 // whose address is not 16-byte aligned (a view at an odd offset) is staged
-// byte by byte instead: same bytes, no overlap (filter.cu and stages.cu
-// instead stage from the aligned address below such a text and offset their
-// tile).
+// byte by byte by cascade.cu: same bytes, no overlap; filter.cu, stages.cu
+// and exact_count.cu instead stage from the aligned address below such a
+// text and offset their tile.
 
 #pragma once
 
@@ -144,8 +144,15 @@ __device__ __forceinline__ uint32_t byte_of(const uint32_t (&w)[kWords],
   return (w[j >> 2] >> (8 * (j & 3))) & 0xFFu;
 }
 
+// Bit `key` of a bitmap in shared memory.
+__device__ __forceinline__ uint32_t smem_bit(const uint32_t* bm,
+                                             uint32_t key) {
+  return (bm[key >> 5] >> (key & 31)) & 1u;
+}
+
 // ---------------------------------------------------------------------------
-// runs of kRun consecutive starts per thread (filter.cu, stages.cu)
+// runs of kRun consecutive starts per thread (filter.cu, stages.cu,
+// exact_count.cu)
 // ---------------------------------------------------------------------------
 
 constexpr int kRun = 32;          // consecutive starts per thread

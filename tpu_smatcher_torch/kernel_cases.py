@@ -1,9 +1,12 @@
 """Inputs of the port's kernel-against-plain checks, shared by chip_smoke.py
 and the tests (tests/test_torch_cuda.py on the card, the CPU mirrors):
 pattern cases, stage bitmaps of any width, start counts around a kernel's
-runs and tiles, and the stage-chain cases of csrc/stages.cu — every chain
-kind EngineFastPath builds at m = 3 to 4097 on views at every address mod
-16, fp stages past shared memory, chains outside EngineFastPath's, and
+runs and tiles, the exact kernels' cases of csrc/exact_count.cu — views at
+every address mod 16, start counts around a run, a mask row and a tile, a
+launch of about 2^18 starts and n = m, sigma 2 to 256 with bytes >= sigma
+— and the stage-chain cases of csrc/stages.cu — every chain kind
+EngineFastPath builds at m = 3 to 4097 on views at every address mod 16,
+fp stages past shared memory, chains outside EngineFastPath's, and
 launches above 48 KB of shared memory around a smaller one.  Every input is
 made with numpy from a seed; holding a kernel against its plain version is
 the caller's part.  Nothing here builds or launches a kernel."""
@@ -18,8 +21,12 @@ from .ops.cuda_engines import EngineFastPath
 from .ops.fast import STAGE_CD
 
 #: stages.cu's run (consecutive starts per thread) and tile (starts per
-#: block iteration, one slot sub-block)
+#: block iteration, one slot sub-block); exact_count.cu's
 STAGES_RUN, STAGES_TILE = 32, 16384
+EXACT_RUN, EXACT_TILE = 32, 8192
+#: starts of a positions piece on the bench corpus (FastScanner._drive:
+#: cap/2 = 32,768 matches at the exact tier's density of 0.142), rounded
+EXACT_PIECE = 1 << 18
 
 
 def make_case(sigma, m, p_size, n, seed):
@@ -116,6 +123,44 @@ def generic_chains(sigma, m, codes, fp_tables):
         ([("wid", (0, 2, bits)), ("wid", (m - 3, 3, bits)),
           ("wid", (2, 1, bits))], [wide, wide, small]),
     ]
+
+
+# ---------------------------------------------------------------------------
+# the exact kernels' edge cases: each views of one text and a bitmap
+# ---------------------------------------------------------------------------
+
+#: (sigma, m) of the exact kernels' edge cases: DNA at the bench tier's m,
+#: sigma 2 at m = 16 (m*bits = 16), sigma 20 (bytes in [20, 32) are dropped
+#: by the guard but roll as clean bytes), sigma 256 (no guard work) and m = 1
+EXACT_EDGE_CASES = [(4, 8), (2, 16), (20, 3), (256, 2), (4, 1)]
+
+
+def exact_edge_case(sigma, m, device):
+    """(views, bitmap): a random bitmap of max(4096, 2^(m*bits)) bits, each
+    set with probability 1/2 (so that the guard drops windows that would
+    hit), and text over sigma with bytes sigma, 255 and, below 2^bits,
+    2^bits - 1 planted (runs that take the per-start path; windows the
+    guard drops), as views: 16 of two tiles and a ragged run, at every
+    address mod 16; then start counts around a run, a mask row and a tile,
+    a positions piece's EXACT_PIECE + 5 starts and n = m, the i-th at
+    address i mod 16 (odd for the piece)."""
+    bits = max(1, (sigma - 1).bit_length())
+    nbits = max(4096, 1 << (m * bits))
+    bitmap = torch.from_numpy(random_stages(1, nbits, 0.5, seed=m)[0])
+    starts = sorted(set(edge_starts(EXACT_RUN, EXACT_TILE))
+                    | {127, 128, 129, EXACT_PIECE + 5, 1})
+    rng = np.random.default_rng(sigma + m)
+    text = rng.integers(0, sigma, max(starts) + m + 16).astype(np.uint8)
+    if sigma < 256:
+        at = rng.integers(0, len(text), len(text) // 64)
+        text[at[::3]] = sigma
+        text[at[1::3]] = 255
+        text[at[2::3]] = (1 << bits) - 1
+    full = torch.from_numpy(text).to(device)
+    two = m - 1 + 2 * EXACT_TILE + 77
+    views = [full[i:i + two] for i in range(16)]
+    views += [full[i % 16:i % 16 + m - 1 + s] for i, s in enumerate(starts)]
+    return views, bitmap.to(device)
 
 
 # ---------------------------------------------------------------------------

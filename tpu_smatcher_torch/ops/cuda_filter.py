@@ -152,7 +152,12 @@ def exact_mask(text: torch.Tensor, bitmap: torch.Tensor, *, m: int,
     """Per-start match mask of the exact tier, pad-guarded:
     (ceil((n-m+1)/128), 128) int8, 1 where the window id hits `bitmap` and
     the window holds no byte >= sigma, 0 elsewhere and at starts >= n-m+1
-    (filter_mask's layout).  Requires n >= m."""
+    (filter_mask's layout).  Requires n >= m.  On the card, one launch of
+    csrc/exact_count.cu's mask mode: a thread owns 32 consecutive starts,
+    rolls their window ids and ANDs the guard's mask of the bytes >= sigma
+    entering their windows, and stores the 32 results as two 16-byte
+    writes, every row written; a text at any address (a positions piece)
+    is staged from the 16-byte aligned address below it."""
     bits = _check_exact(text, bitmap, m, sigma)
     n = int(text.shape[0])
     if not 1 <= m <= n:
