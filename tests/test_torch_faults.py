@@ -7,7 +7,10 @@ CPU on the same inputs (tolerance 0):
   - the unguarded exact count on text holding bytes >= sigma (text that is
     not encoded in the pattern set's alphabet) ORs the shifted bytes into
     the window id, as the JAX package's xla path does; its Pallas kernel
-    sums them, and only encoded text is specified."""
+    sums them, and only encoded text is specified;
+  - make_engine_from_tables("fast", ...) passes the scanner's options
+    (cap) through, as the JAX package's does, and takes tables only on the
+    device it was asked for."""
 
 import numpy as np
 import pytest
@@ -23,6 +26,7 @@ from tpu_smatcher.ops import fast as jfast
 from tpu_smatcher.ops import pallas_filter as pf
 
 from tpu_smatcher_torch import ENGINE_NAMES, make_engine, make_fast
+from tpu_smatcher_torch.engines import build_tables, make_engine_from_tables
 from tpu_smatcher_torch.core import datagen
 from tpu_smatcher_torch.core.alphabet import Alphabet
 from tpu_smatcher_torch.ops import cuda_filter as cf
@@ -153,3 +157,22 @@ def test_exact_count_sums_on_the_tpu_and_ors_here():
                                      sigma=4, n=len(text),
                                      interpret=True)) == 0
     assert datagen.count_matches(text, pats) == 0
+
+
+@pytest.mark.parametrize("m", [8, 16])
+def test_fast_engine_from_tables_takes_the_cap(m):
+    """A cap passed to make_engine_from_tables("fast", ...) reaches the
+    scanner, on the exact tier and the fingerprint tier, and the scanner
+    counts as the JAX package's built the same way."""
+    text, pats = make_case(4, m, 40, 30_000, seed=60 + m)
+    tables = build_tables("fast", pats, device="cpu")
+    eng = make_engine_from_tables("fast", tables, device="cpu", cap=1 << 17,
+                                  tile=1 << 12)
+    assert eng.cap == 1 << 17 and eng.tile == 1 << 12
+    jeng = jmake_fast(jax_pats(pats), cap=1 << 17, backend="xla")
+    assert jeng.cap == eng.cap
+    assert eng.count(text) == jeng.count(text) == \
+        datagen.count_matches(text, pats)
+    with pytest.raises(TypeError, match="'fast' only"):
+        make_engine_from_tables("ac", build_tables("ac", pats), device="cpu",
+                                cap=1 << 17)

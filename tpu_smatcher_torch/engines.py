@@ -70,14 +70,18 @@ def build_tables(name: str, patterns: PatternSet, *, device="cuda") -> dict:
 
 def make_engine_from_tables(name: str, tables: dict, *, device="cuda",
                             lanes: int = 8192, q: int = 1,
-                            tile: int = DEFAULT_TILE):
-    """The named engine over prebuilt tables (build_tables), on `device`.
-    lanes/q apply to ac, tile to the filter engines and 'fast'."""
+                            tile: int = DEFAULT_TILE, **opts):
+    """The named engine over prebuilt tables (build_tables, or
+    core.checkpoint.load_tables), on `device`.  lanes/q apply to ac, tile
+    to the filter engines and 'fast'; opts (cap) to 'fast' only, whose
+    tables must already lie on `device` (they are never moved)."""
     from tpu_smatcher_torch.ops.ac import ACScanner
     from tpu_smatcher_torch.ops.filters import (SBOMScanner, SHScanner,
                                                 SOGScanner, WMScanner)
     dev = _device(device)
     main = tables["main"]
+    if opts and name != "fast":
+        raise TypeError(f"options {sorted(opts)} apply to 'fast' only")
     if name == "ac":
         return ACScanner(main, lanes=lanes, q=q, device=dev)
     if name == "sh":
@@ -90,7 +94,10 @@ def make_engine_from_tables(name: str, tables: dict, *, device="cuda",
         return SOGScanner(main, tables["verify"], tile=tile, device=dev)
     if name == "fast":
         from tpu_smatcher_torch.ops.fast import FastScanner
-        return FastScanner(main, tile=tile)
+        if main.device != dev:
+            raise ValueError(f"fast tables on {main.device}, engine asked "
+                             f"for {dev}: load them with device={dev}")
+        return FastScanner(main, tile=tile, **opts)
     raise _unknown(name)
 
 
