@@ -46,8 +46,19 @@
      cut into 8 rows; count_repeat_async; the fp tier's (m=32 p=10k)
      positions, matches and count_per_pattern against the ground truth;
      dense32's and saturated's positions (saturated's pieces split);
+   - engines: the seven named engines (make_engine) on the bench sets;
+   - mixed: the corpus written as FASTA (60-byte lines, two records) and
+     the union of the m = 8, 16, 32 p=10k sets as a FASTA file of 30,000
+     shuffled records, loaded back (load_fasta, MixedPatternSet.from_fasta)
+     and checked byte for byte; make_mixed(...).count equal to the sum of
+     the three BENCH_r05.json counts (38,057,563) and each group to its
+     own, through count, count_file at two chunks, scan_many and the wm and
+     ac families; mixed positions, matches and count_per_pattern on the 4
+     MiB prefix against datagen; fast tables (m = 8, 32) and wm tables (m =
+     32) through save_tables / load_tables on the card; scan();
 5. times each path (median per-scan over 5 reps, CUDA events) on the
-   kernels and on the plain versions, each kernel against its plain version
+   kernels and on the plain versions (the mixed scan beside the sum of its
+   groups' make_fast tiers), each kernel against its plain version
    and its bound, and words_view against one PyTorch call.  Each kernel is
    first held against its plain version, exactly, on the inputs the main
    paths gave it (the cascade at every bench tier's stages, filter_mask
@@ -91,6 +102,10 @@ PAT_SEED = 8 + M_CELL
 #: dense32's plants of pattern 0: every 256 bytes over [1 MiB, 3 MiB)
 PLANTS = range(MiB, 3 * MiB, 256)
 MAX_RETRIES = 6
+#: the mixed phase: the lengths of bench.py's p=10k sets it unites, and the
+#: seed of the shuffle of its FASTA pattern file
+MIXED_M = (8, 16, 32)
+MIXED_SEED = 9
 #: the cascade's run (consecutive starts per thread) and tile (starts per
 #: block iteration; the exact kernels' are kernel_cases'): the kernel checks
 #: take start counts around both
@@ -873,13 +888,15 @@ def route_of(eng, n):
 
 def tiers_path(text, tdev, total):
     """bench.py's five tiers through make_fast(pats).count.  Returns the
-    engines and each tier's pattern codes, by name."""
+    engines, and each tier's pattern codes and ground-truth match starts
+    on the 4 MiB prefix, by name."""
+    import numpy as np
     from tpu_smatcher_torch import make_fast
     from tpu_smatcher_torch.core import datagen
     from tpu_smatcher_torch.core.alphabet import Alphabet
 
     ab = Alphabet.dna()
-    engines, checks, codes = [], [], {}
+    engines, checks, codes, gates = [], [], {}, {}
     reset_launches()
     for name, m, p, anchor in TIERS:
         pats = datagen.generate_patterns(text, p, m, ab, frac_present=0.5,
@@ -892,7 +909,9 @@ def tiers_path(text, tdev, total):
         checks.append((name, pats, anchor, gate, full))
     read_launches("tiers", ("exact_count", "cascade", "words_view"), total)
     for (name, pats, anchor, gate, full), (_, eng) in zip(checks, engines):
-        truth = datagen.count_matches(text[:N_GATE], pats)
+        gates[name] = np.flatnonzero(datagen.match_starts(text[:N_GATE],
+                                                          pats))
+        truth = len(gates[name])
         plain, o = plain_count(eng, tdev)
         route = route_of(eng, N_FULL)
         log(f"tier {name} (m={pats.m} p={pats.p_size}) route={route}: gate "
@@ -903,7 +922,7 @@ def tiers_path(text, tdev, total):
         assert plain == full and not o, f"{name}: plain {plain} != {full}"
         assert route == "exact" or route[0] == "cascade", f"{name}: {route}"
         assert eng.fallback_scans == 0, f"{name}: overflow retry taken"
-    return engines, codes
+    return engines, codes, gates
 
 
 def slot32_path(text, tdev, total):
@@ -1246,6 +1265,179 @@ def engines_path(text, tdev, codes, fp_pos, dense_pats, dense, total):
     return engines
 
 
+def fasta_record(header, raw, width=60):
+    """The pieces of one FASTA record: its header line, then `raw` in
+    lines of `width` bytes."""
+    import numpy as np
+    full = raw.size // width * width
+    body = np.concatenate([raw[:full].reshape(-1, width),
+                           np.full((full // width, 1), ord("\n"),
+                                   np.uint8)], axis=1)
+    tail = raw[full:].tobytes()
+    return [header + b"\n", body.tobytes(), tail + b"\n" * bool(tail)]
+
+
+def write_mixed_files(tmp, text, pats):
+    """The corpus as FASTA (60-byte lines, two records, through the port's
+    Alphabet.decode), the corpus raw, and bench.py's p=10k sets of every
+    MIXED_M as one FASTA record each, in shuffled order.  Returns the
+    three paths, each set's rows in file order and the shuffle."""
+    import numpy as np
+    ab = pats[MIXED_M[0]].alphabet
+    raw = np.frombuffer(ab.decode(text), np.uint8)
+    half = raw.size // 2
+    fasta, bare, pfa = (f"{tmp}/corpus.fa", f"{tmp}/corpus.bin",
+                        f"{tmp}/patterns.fa")
+    with open(fasta, "wb") as f:
+        for part in (fasta_record(b">chr1 bench.py corpus, seed 7, first "
+                                  b"half", raw[:half])
+                     + fasta_record(b">chr2 second half", raw[half:])):
+            f.write(part)
+    text.tofile(bare)
+    rows = [r for m in MIXED_M for r in pats[m].codes]
+    order = np.random.default_rng(MIXED_SEED).permutation(len(rows))
+    with open(pfa, "wb") as f:
+        f.write(b"".join(b">p%d len %d\n%s\n" % (i, rows[j].size,
+                                                  ab.decode(rows[j]))
+                         for i, j in enumerate(order)))
+    return fasta, bare, pfa, order
+
+
+def mixed_path(text, tdev, codes, gates, total):
+    """Mixed lengths, the FASTA front end, table checkpoints and scan() on
+    bench.py's corpus: the corpus and the union of the m = 8, 16, 32 p=10k
+    sets written as FASTA and loaded back (load_fasta,
+    MixedPatternSet.from_fasta); make_mixed(...).count against the sum of
+    the BENCH_r05.json anchors and each group against its own; count_file
+    at two chunks, scan_many, the wm and ac families; positions, matches
+    and count_per_pattern on the 4 MiB prefix against datagen (the tiers'
+    gates); fast tables
+    (m = 8, 32) and wm tables (m = 32) through save_tables / load_tables
+    on the card; scan().  Each group is driven with the launch counters at
+    0, then checked.  Returns the mixed scanner."""
+    import tempfile
+    import numpy as np
+    import tpu_smatcher_torch as ts
+    from tpu_smatcher_torch import make_mixed
+    from tpu_smatcher_torch.core import checkpoint, corpus
+    from tpu_smatcher_torch.core.patterns import MixedPatternSet
+    from tpu_smatcher_torch.engines import (attach_fastpath, build_tables,
+                                            make_engine_from_tables)
+
+    pats = bench_pattern_sets(codes)
+    anchors = {m: a for _, m, p, a in TIERS if p == 10_000}
+    want = sum(anchors[m] for m in MIXED_M)
+    ab = pats[8].alphabet
+    secs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        (fasta, bare, pfa, order), secs["write FASTA and raw files"] = \
+            timed(lambda: write_mixed_files(tmp, text, pats))
+        cp, secs["load_fasta (256 MiB)"] = timed(
+            lambda: corpus.load_fasta(fasta, ab))
+        mx, secs["MixedPatternSet.from_fasta"] = timed(
+            lambda: MixedPatternSet.from_fasta(pfa, ab))
+        assert cp.n == text.size and np.array_equal(cp.codes, text), \
+            "load_fasta != the corpus"
+        assert mx.lengths == MIXED_M, f"lengths {mx.lengths}"
+        base = np.cumsum([0] + [pats[m].p_size for m in MIXED_M])
+        for i, (g, gids) in enumerate(zip(mx.groups, mx.ids)):
+            src = order[gids] - base[i]
+            assert np.array_equal(np.sort(src), np.arange(g.p_size)), \
+                f"m={g.m}: ids"
+            assert np.array_equal(g.codes, pats[g.m].codes[src]), \
+                f"m={g.m}: rows"
+        gate = {m: gates[name] for name, m, p, _ in TIERS
+                if p == 10_000 and m in MIXED_M}
+        gate_sum = sum(len(v) for v in gate.values())
+
+        reset_launches()
+        eng = make_mixed(mx)
+        count = eng.count(tdev)
+        subs = [s.count(tdev) for s in eng.scanners]
+        many = eng.scan_many([tdev, tdev[:N_GATE]])
+        read_launches("mixed count", ("exact_count", "cascade",
+                                      "words_view"), total)
+        reset_launches()
+        files = {}
+        for chunk in (1 << 28, 64 * MiB):
+            files[chunk], secs[f"count_file, chunk {chunk // MiB} MiB"] = \
+                timed(lambda: eng.count_file(bare, chunk=chunk))
+        read_launches("mixed count_file", ("exact_count", "cascade",
+                                           "words_view"), total)
+        log(f"mixed (lengths {mx.lengths}, p={mx.p_size}): count {count} "
+            f"(anchor {want}), groups {subs} (anchors "
+            f"{[anchors[m] for m in MIXED_M]}), scan_many of the corpus and "
+            f"its 4 MiB prefix {many} (gate {gate_sum}), count_file "
+            f"{files}")
+        assert count == want, f"mixed count {count} != {want}"
+        assert subs == [anchors[m] for m in MIXED_M], f"groups {subs}"
+        assert many == [want, gate_sum], f"mixed scan_many {many}"
+        assert set(files.values()) == {want}, f"count_file {files}"
+
+        for family, kern in (("wm", "stages"), ("ac", "stages_flat")):
+            reset_launches()
+            fam = make_mixed(mx, engine=family).count(tdev)
+            read_launches(f"mixed {family}", (kern, "words_view"), total)
+            log(f"mixed engine={family}: count {fam}")
+            assert fam == want, f"mixed {family} {fam} != {want}"
+
+        reset_launches()
+        tg = tdev[:N_GATE]
+        (starts, lens), secs["positions (4 MiB)"] = timed(
+            lambda: eng.positions(tg))
+        (ms, ids), secs["matches (4 MiB)"] = timed(lambda: eng.matches(tg))
+        per, secs["count_per_pattern (4 MiB)"] = timed(
+            lambda: eng.count_per_pattern(tg))
+        read_launches("mixed positions", ("exact_mask", "filter_mask",
+                                          "words_view"), total)
+        log(f"mixed positions on the 4 MiB prefix: {len(starts)} (gate "
+            f"{gate_sum}), matches {len(ms)}, count_per_pattern sum "
+            f"{int(per.sum())}")
+        id_len = np.zeros(mx.p_size, np.int64)
+        for g, gids in zip(mx.groups, mx.ids):
+            id_len[gids] = g.m
+            by_id = np.zeros((mx.p_size, g.m), np.uint8)
+            by_id[gids] = g.codes
+            sel = id_len[ids] == g.m
+            assert np.array_equal(starts[lens == g.m], gate[g.m]), \
+                f"m={g.m} positions"
+            assert np.array_equal(ms[sel], gate[g.m]), f"m={g.m} matches"
+            # each reported id's pattern occurs at its start
+            win = text[ms[sel][:, None] + np.arange(g.m)]
+            assert np.array_equal(win, by_id[ids[sel]]), f"m={g.m} ids"
+        assert int(per.sum()) == gate_sum == len(ms), "count_per_pattern"
+
+        reset_launches()
+        for name, m in (("fast", 8), ("fast", 32), ("wm", 32)):
+            path = f"{tmp}/{name}{m}.npz"
+            tables, b_s = timed(lambda: build_tables(name, pats[m]))
+            checkpoint.save_tables(path, tables)
+            loaded, l_s = timed(lambda: checkpoint.load_tables(path))
+            e = make_engine_from_tables(name, loaded)
+            extra = ""
+            if name == "wm":
+                gate_c = e.count(tdev[:N_GATE])    # the portable scan
+                extra = f", portable scan on the 4 MiB prefix {gate_c}"
+                assert gate_c == len(gate[m]), f"{name}{m} portable"
+                attach_fastpath(e, name, pats[m].codes, pats[m].sigma)
+            c = e.count(tdev)
+            log(f"checkpoint {name} m={m}: build {b_s:.3f} s, load "
+                f"{l_s:.3f} s (host clock), count {c} (anchor "
+                f"{anchors[m]}){extra}")
+            assert c == anchors[m], f"checkpoint {name}{m}: {c}"
+        read_launches("mixed checkpoints", ("exact_count", "cascade",
+                                            "stages", "words_view"), total)
+
+    reset_launches()
+    r = ts.scan(tdev, pats[8], device="cuda")
+    read_launches("scan()", ("exact_count",), total)
+    log(f"scan(): {r}")
+    assert r["matches"] == anchors[8] and r["bytes"] == N_FULL, "scan()"
+    log("mixed phase (host clock): " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in secs.items()))
+    return eng
+
+
 # ---------------------------------------------------------------------------
 # timings
 # ---------------------------------------------------------------------------
@@ -1548,6 +1740,19 @@ def stages_bound(text, chain, tables, kw, ft, fractions):
     return bound(nbytes, n_st * ops), [chain[i][0] for i in order]
 
 
+def mixed_timings(card, tdev, mixed, tier_ms):
+    """The mixed scan's ms/scan beside the sum of its groups' make_fast
+    tiers' in this run, and its profile."""
+    ms = cuda_ms(lambda: mixed.count_async(tdev).result())
+    parts = [tier_ms[name] for name, m, p, _ in TIERS
+             if p == 10_000 and m in MIXED_M]
+    log(f"[{card}] mixed m={'+'.join(map(str, MIXED_M))}: {ms:.3f} ms/scan "
+        f"({int(tdev.shape[0]) / ms / 1e6:.2f} GB/s); its groups' make_fast "
+        f"tiers {' + '.join(f'{t:.3f}' for t in parts)} = {sum(parts):.3f} "
+        f"ms/scan, ratio {ms / sum(parts):.3f}")
+    profile(card, "mixed count", lambda: mixed.count_async(tdev).result())
+
+
 def engines_timings(card, ck, tdev, engines, tier_ms):
     """Per-scan medians of the eleven engines beside make_fast's at the same
     m, a profile per stage kind, and the stage kernel on each engine's own
@@ -1625,7 +1830,7 @@ def main() -> int:
         f"({time.perf_counter() - t0:.1f} s)")
     total = {k: 0 for k in KERNELS}
     with sized_launches() as (scanned, unaligned, chains):
-        engines, codes = tiers_path(text, tdev, total)
+        engines, codes, gates = tiers_path(text, tdev, total)
         pats, slot_eng, gate0, full0 = slot32_path(text, tdev, total)
         dense = dense32_path(text, tdev, pats, gate0, full0, total)
         sat = saturated_path(text, tdev, total)
@@ -1634,9 +1839,11 @@ def main() -> int:
                                    total)
         t2 = time.perf_counter()
         named = engines_path(text, tdev, codes, fpos, pats, dense, total)
+        t3 = time.perf_counter()
+        mixed = mixed_path(text, tdev, codes, gates, total)
     log(f"main paths done at {time.perf_counter() - t0:.1f} s (positions "
-        f"phase {t2 - t1:.1f} s, engines phase "
-        f"{time.perf_counter() - t2:.1f} s); launches {total}")
+        f"phase {t2 - t1:.1f} s, engines phase {t3 - t2:.1f} s, mixed "
+        f"phase {time.perf_counter() - t3:.1f} s); launches {total}")
     per_kernel, tier_ms = timings(card, ck, tdev, engines, slot_eng, dense,
                                   sat)
     t1 = time.perf_counter()
@@ -1645,6 +1852,7 @@ def main() -> int:
     engine_kernels, chain_times = engines_timings(card, ck, tdev, named,
                                                   tier_ms)
     per_kernel.update(engine_kernels)
+    mixed_timings(card, tdev, mixed, tier_ms)
     log(f"timings done at {time.perf_counter() - t0:.1f} s (positions "
         f"phase {t2 - t1:.1f} s, engines phase "
         f"{time.perf_counter() - t2:.1f} s)")

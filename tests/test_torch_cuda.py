@@ -679,3 +679,89 @@ def test_engine_count_async_does_not_wait_for_the_device(cuda, name, sigma,
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert fut.result() == truth and rep.result() == 2 * truth
+
+
+# ---------------------------------------------------------------------------
+# mixed lengths and table checkpoints
+# ---------------------------------------------------------------------------
+
+def _mixed_case(n=300_007):
+    """DNA text and a mixed set of lengths 8 (exact tier), 16 and 32 (fp
+    tier), patterns taken from the text and random ones."""
+    from tpu_smatcher_torch.core.alphabet import Alphabet
+    from tpu_smatcher_torch.core.patterns import MixedPatternSet
+    ab = Alphabet.dna()
+    text = datagen.generate_text(n, ab, seed=90)
+    rows = [r for m in (8, 16, 32) for r in datagen.generate_patterns(
+        text, 60, m, ab, frac_present=0.5, seed=91 + m).codes]
+    order = np.random.default_rng(92).permutation(len(rows))
+    return text, MixedPatternSet.from_rows([rows[i] for i in order], ab)
+
+
+def test_mixed_on_the_card_equals_cpu(cuda):
+    """make_mixed's count, count_async, positions, matches and
+    count_per_pattern on the card equal the CPU's, the count the oracle's;
+    count_async enqueues every group without waiting for the device."""
+    from tpu_smatcher_torch import make_mixed
+    text, mx = _mixed_case()
+    eng, cpu = make_mixed(mx, device=cuda), make_mixed(mx, device="cpu")
+    t = torch.from_numpy(text).to(cuda)
+    truth = sum(datagen.count_matches(text, g) for g in mx.groups)
+    assert eng.count(t) == cpu.count(text) == truth
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fut = eng.count_async(t)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert fut.result() == truth
+    for got, want in zip(eng.positions(t), cpu.positions(text)):
+        np.testing.assert_array_equal(got, want)
+    for got, want in zip(eng.matches(t), cpu.matches(text)):
+        np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(eng.count_per_pattern(t),
+                                  cpu.count_per_pattern(text))
+    wm = make_mixed(mx, engine="wm", device=cuda)
+    assert wm.count(t) == truth
+
+
+def test_mixed_unaligned_piece_on_the_card(cuda, tmp_path):
+    """count_file's pieces on the card, and one piece as a view at an odd
+    address inside a larger device buffer, count as on the CPU."""
+    from tpu_smatcher_torch import make_mixed
+    text, mx = _mixed_case()
+    eng, cpu = make_mixed(mx, device=cuda), make_mixed(mx, device="cpu")
+    path = tmp_path / "corpus.bin"
+    text.tofile(path)
+    for chunk in (1 << 16, 99_991):
+        assert eng.count_file(str(path), chunk=chunk) == \
+            cpu.count_file(str(path), chunk=chunk) == cpu.count(text)
+    t = torch.from_numpy(text).to(cuda)
+    piece = t[99_991:2 * 99_991 + 31]
+    assert piece.data_ptr() % 16
+    assert eng.count(piece) == cpu.count(text[99_991:2 * 99_991 + 31])
+
+
+@pytest.mark.parametrize("m", [8, 32])
+def test_checkpoint_loaded_on_the_card_counts_like_cpu(cuda, tmp_path, m):
+    """A fast table saved from the card loads on the card and on the CPU,
+    and both count the oracle's count; an engine over tables of the other
+    device raises instead of moving them."""
+    from tpu_smatcher_torch.core import checkpoint
+    from tpu_smatcher_torch.engines import (build_tables,
+                                            make_engine_from_tables)
+    text, pats = make_case(4, m, 300, 300_007, seed=93 + m)
+    p = tmp_path / "fast.npz"
+    checkpoint.save_tables(p, build_tables("fast", pats, device=cuda))
+    on_card = checkpoint.load_tables(p, device=cuda)
+    on_cpu = checkpoint.load_tables(p, device="cpu")
+    assert on_card["main"].device.type == "cuda"
+    truth = datagen.count_matches(text, pats)
+    eng = make_engine_from_tables("fast", on_card, device=cuda, cap=1 << 17)
+    assert eng.cap == 1 << 17
+    assert eng.count(torch.from_numpy(text).to(cuda)) == truth
+    assert make_engine_from_tables("fast", on_cpu, device="cpu").count(
+        text) == truth
+    with pytest.raises(ValueError, match="fast tables on"):
+        make_engine_from_tables("fast", on_cpu, device=cuda)
+    with pytest.raises(ValueError, match="fast tables on"):
+        make_engine_from_tables("fast", on_card, device="cpu")

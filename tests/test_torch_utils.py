@@ -1,0 +1,101 @@
+"""The port's KMP, profiling utilities and top-level scan() against the
+JAX package's, on the CPU (tolerance 0 for tables and counts)."""
+
+import json
+import time
+
+import numpy as np
+import pytest
+import torch
+
+import tpu_smatcher as jts
+from tpu_smatcher.automata.kmp import kmp_count as jkmp_count
+from tpu_smatcher.automata.kmp import pre_kmp as jpre_kmp
+
+import tpu_smatcher_torch as ts
+from tpu_smatcher_torch.automata import kmp_count, pre_kmp
+from tpu_smatcher_torch.core import datagen
+from tpu_smatcher_torch.utils import PhaseTimer, emit_jsonl, time_fn, trace
+
+from torch_cases import jax_pats, make_case
+
+
+@pytest.mark.parametrize("seed", range(4))
+@pytest.mark.parametrize("sigma", [2, 4, 20])
+def test_pre_kmp_and_kmp_count_equal_jax_and_naive(seed, sigma):
+    rng = np.random.default_rng(10 * seed + sigma)
+    m = int(rng.integers(1, 12))
+    p = rng.integers(0, sigma, m).astype(np.uint8)
+    t = rng.integers(0, sigma, 3000).astype(np.uint8)
+    if seed == 0:                 # a pattern with long borders
+        p = np.zeros(m, np.uint8)
+    np.testing.assert_array_equal(pre_kmp(p), jpre_kmp(p))
+    naive = sum(1 for i in range(len(t) - m + 1) if (t[i:i + m] == p).all())
+    assert kmp_count(p, t) == jkmp_count(p, t) == naive
+
+
+def test_pre_kmp_known():
+    p = np.array([0, 1, 0, 1, 0, 0], np.uint8)      # "ababaa"
+    np.testing.assert_array_equal(pre_kmp(p), [-1, 0, -1, 0, -1, 3, 1])
+    assert kmp_count(p, p[:3]) == 0 and kmp_count(p[:0], p) == 0
+
+
+def test_phase_timer_accumulates():
+    pt = PhaseTimer()
+    with pt.phase("read"):
+        time.sleep(0.01)
+    with pt.phase("read"):
+        time.sleep(0.01)
+    with pt.phase("scan"):
+        pass
+    r = pt.report()
+    assert set(r) == {"read_s", "scan_s"}
+    assert r["read_s"] >= 0.02 and r["scan_s"] >= 0.0
+
+
+def test_time_fn_on_the_cpu_reports_time_jit_keys():
+    calls = []
+    x = torch.arange(1 << 16, dtype=torch.int32)
+
+    def f(v):
+        calls.append(1)
+        return int((v * 2).sum())
+
+    r = time_fn(f, x, reps=3, warmup=2, bytes_scanned=x.numel() * 4)
+    assert set(r) == {"best_s", "mean_s", "reps", "bytes_per_s"}
+    assert r["reps"] == 3 and len(calls) == 5
+    assert r["best_s"] > 0 and r["bytes_per_s"] > 0
+    assert r["mean_s"] >= r["best_s"]
+    assert "bytes_per_s" not in time_fn(f, x, reps=1, warmup=0)
+
+
+def test_trace_writes_a_chrome_trace(tmp_path):
+    with trace(str(tmp_path)) as prof:
+        torch.ones(1000).cumsum(0)
+    assert prof.key_averages()
+    assert json.loads((tmp_path / "trace.json").read_text())
+
+
+def test_emit_jsonl(tmp_path):
+    p = tmp_path / "metrics.jsonl"
+    emit_jsonl(str(p), {"matches": 1})
+    emit_jsonl(str(p), {"matches": 2})
+    recs = [json.loads(line) for line in p.read_text().splitlines()]
+    assert recs == [{"matches": 1}, {"matches": 2}]
+
+
+@pytest.mark.parametrize("sigma,m,engine", [(4, 8, "fast"), (4, 16, "fast"),
+                                            (4, 8, "wm")])
+def test_scan_on_the_cpu_equals_jax_scan(sigma, m, engine):
+    text, pats = make_case(sigma, m, 30, 30_000, seed=70 + m)
+    jopts = {"backend": "xla"} if engine == "fast" else {"fastpath": False}
+    want = jts.scan(text, jax_pats(pats), engine=engine, tile=1 << 12,
+                    **jopts)
+    r = ts.scan(text, pats, engine=engine, device="cpu", reps=2,
+                tile=1 << 12)
+    assert set(r) == set(want) == {"engine", "matches", "bytes", "preproc_s",
+                                   "scan_s", "bytes_per_s"}
+    assert r["matches"] == want["matches"] == \
+        datagen.count_matches(text, pats)
+    assert r["engine"] == engine and r["bytes"] == want["bytes"] == 30_000
+    assert r["bytes_per_s"] > 0 and r["scan_s"] > 0

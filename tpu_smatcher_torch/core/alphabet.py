@@ -86,6 +86,15 @@ class Alphabet:
                 lut[ch + 32] = code
         return lut[arr]
 
+    def decode(self, codes: np.ndarray) -> bytes:
+        """Code points -> raw bytes: through the char map, else as they
+        are."""
+        codes = np.asarray(codes, dtype=np.uint8)
+        if self.chars is None:
+            return codes.tobytes()
+        lut = np.frombuffer(self.chars, dtype=np.uint8)
+        return lut[codes].tobytes()
+
     def validate(self, codes: np.ndarray) -> None:
         codes = np.asarray(codes)
         if codes.size and int(codes.max()) >= self.size:

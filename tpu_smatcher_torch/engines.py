@@ -8,6 +8,8 @@ caller asks for the CPU; there is no implicit fallback.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -149,3 +151,155 @@ def make_fast(patterns: PatternSet, *, device="cuda", **opts):
     n_stages = opts.pop("n_stages", None)
     return FastScanner(build_fast(codes, sigma, n_stages=n_stages,
                                   device=dev), **opts)
+
+
+# ---------------------------------------------------------------------------
+# mixed lengths
+# ---------------------------------------------------------------------------
+
+class _MixedFuture:
+    """In-flight mixed-length scan: one sub-future per length group; the
+    host reads happen only at result(), and the sum is a python int (each
+    group's count is int32, checked by its own future)."""
+
+    def __init__(self, futures):
+        self._futures = futures
+
+    def result(self) -> int:
+        return sum(f.result() for f in self._futures)
+
+
+class MixedScanner:
+    """Mixed-length matching: one sub-scanner per distinct pattern length,
+    all scanning one uint8 tensor on the device, results combined.
+
+    count() is the sum of each length's windows-with-a-match count (one
+    run per length would report the same); positions() / matches() merge
+    the per-length enumerations, with global pattern ids.  count_async
+    enqueues every group before any host read."""
+
+    def __init__(self, patterns, scanners):
+        self.patterns = patterns
+        self.scanners = list(scanners)
+        self.lengths = patterns.lengths
+        self.device = self.scanners[0].device
+
+    def _text(self, text) -> torch.Tensor:
+        """One uint8 tensor on the device, shared by every group's
+        sub-scan: a host array is uploaded once."""
+        from tpu_smatcher_torch.ops.fast import device_text
+        return device_text(text, self.device)
+
+    def count_async(self, text) -> _MixedFuture:
+        text = self._text(text)
+        return _MixedFuture([s.count_async(text) for s in self.scanners])
+
+    def count(self, text) -> int:
+        return self.count_async(text).result()
+
+    def scan_many(self, texts) -> list:
+        futures = [self.count_async(t) for t in texts]
+        return [f.result() for f in futures]
+
+    def positions(self, text):
+        """(starts, lengths) int64: every match start with the matched
+        pattern length, sorted by (start, length).  A start matching two
+        lengths appears once per length."""
+        text = self._text(text)
+        starts, lens = [], []
+        for m, s in zip(self.lengths, self.scanners):
+            pos = np.asarray(s.positions(text), np.int64)
+            starts.append(pos)
+            lens.append(np.full(pos.shape, m, np.int64))
+        return _by_start(np.concatenate(starts), np.concatenate(lens))
+
+    def matches(self, text):
+        """(starts, pattern_ids) int64: global ids into the mixed set,
+        sorted by (start, id); a start matching two lengths appears once
+        per length."""
+        text = self._text(text)
+        starts, ids = [], []
+        for gids, s in zip(self.patterns.ids, self.scanners):
+            pos, local = s.matches(text)
+            starts.append(np.asarray(pos, np.int64))
+            ids.append(gids[np.asarray(local, np.int64)])
+        return _by_start(np.concatenate(starts), np.concatenate(ids))
+
+    def count_per_pattern(self, text) -> np.ndarray:
+        """(p_size,) int64 match-start counts per global pattern id
+        (duplicates within a group credit the smallest id, as matches()
+        does); they sum to count(text)."""
+        _, ids = self.matches(text)
+        return np.bincount(ids, minlength=self.patterns.p_size).astype(
+            np.int64)
+
+    def _file_pieces(self, path: str, chunk: int):
+        """(start, [(scanner, piece view)]) over a pre-encoded corpus file,
+        read once.  The pieces follow the shortest length's grid (shorter
+        groups own starts past the longest group's last piece) and are
+        read with the longest length's halo; each piece is uploaded once,
+        and group g takes its first chunk + m_g - 1 bytes, so each group's
+        starts partition exactly.  A group with no start left in a piece
+        skips it."""
+        size = os.path.getsize(path)
+        m_min, m_max = self.lengths[0], self.lengths[-1]
+        mm = np.memmap(path, dtype=np.uint8, mode="r")
+        for start in range(0, max(size - m_min + 1, 1), chunk):
+            piece = mm[start:min(size, start + chunk + m_max - 1)]
+            pdev = self._text(piece)
+            yield start, [(s, pdev[:min(pdev.shape[0], chunk + m - 1)])
+                          for m, s in zip(self.lengths, self.scanners)
+                          if start <= size - m]
+
+    def count_file(self, path: str, *, chunk: int = 1 << 28,
+                   depth: int = 3) -> int:
+        """Count of a pre-encoded corpus file, streamed in pieces
+        (_file_pieces), up to `depth` pieces' scans in flight."""
+        total = 0
+        inflight = []
+        for _, views in self._file_pieces(path, chunk):
+            for s, view in views:
+                inflight.append(s.count_async(view))
+                if len(inflight) >= depth * len(self.scanners):
+                    total += inflight.pop(0).result()
+        return total + sum(f.result() for f in inflight)
+
+    def positions_file(self, path: str, *, chunk: int = 1 << 28):
+        """(starts, lengths) int64 of a pre-encoded corpus file, streamed
+        in the pieces of count_file; offsets accumulate in int64, so files
+        of 2^31 bytes and more stream too."""
+        out_s, out_l = [], []
+        for start, views in self._file_pieces(path, chunk):
+            for s, view in views:
+                pos = np.asarray(s.positions(view), np.int64)
+                out_s.append(pos + start)
+                out_l.append(np.full(pos.shape, s.m, np.int64))
+        if not out_s:
+            return np.empty(0, np.int64), np.empty(0, np.int64)
+        return _by_start(np.concatenate(out_s), np.concatenate(out_l))
+
+
+def _by_start(starts: np.ndarray, keys: np.ndarray):
+    """(starts, keys) sorted by (start, key)."""
+    order = np.lexsort((keys, starts))
+    return starts[order], keys[order]
+
+
+def make_mixed(patterns, engine: str = "fast", *, device="cuda",
+               **opts) -> MixedScanner:
+    """Scanner over a MixedPatternSet on `device`: `engine` names the
+    sub-scanner family ('fast' or one of ENGINE_NAMES), built once per
+    distinct pattern length with opts (make_fast's or make_engine's).  An
+    engine that cannot take one of the lengths (sog8 takes m = 8 only)
+    raises."""
+    from tpu_smatcher_torch.core.patterns import MixedPatternSet
+    if not isinstance(patterns, MixedPatternSet):
+        raise TypeError("make_mixed expects a MixedPatternSet "
+                        "(PatternSet sets are uniform: use make_engine)")
+    dev = _device(device)
+    if engine == "fast":
+        scanners = [make_fast(g, device=dev, **opts) for g in patterns.groups]
+    else:
+        scanners = [make_engine(engine, g, device=dev, **opts)
+                    for g in patterns.groups]
+    return MixedScanner(patterns, scanners)
