@@ -1,6 +1,6 @@
-"""Engine facade of the PyTorch port (port of tpu_smatcher/engines.py:19-116):
-one constructor per algorithm of the reference (smatcher.h:89-133), and the
-shared fast backend.
+"""Engine facade of the PyTorch port (port of tpu_smatcher/engines.py):
+one constructor per algorithm of the reference (smatcher.h:89-133), the
+shared fast backend, and the mixed-length scanner over either.
 
 Every entry point runs on its tables' device, device="cuda" unless the
 caller asks for the CPU; there is no implicit fallback.
@@ -159,8 +159,8 @@ def make_fast(patterns: PatternSet, *, device="cuda", **opts):
 
 class _MixedFuture:
     """In-flight mixed-length scan: one sub-future per length group; the
-    host reads happen only at result(), and the sum is a python int (each
-    group's count is int32, checked by its own future)."""
+    host reads happen only at result(), and the groups' int32 counts are
+    summed as a python int, never on the device."""
 
     def __init__(self, futures):
         self._futures = futures
