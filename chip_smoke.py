@@ -56,9 +56,27 @@
      ac families; mixed positions, matches and count_per_pattern on the 4
      MiB prefix against datagen; fast tables (m = 8, 32) and wm tables (m =
      32) through save_tables / load_tables on the card; scan();
+   - distributed, world size 1 on NCCL in this process: make_distributed
+     over the five tiers and the eleven engines, each count through the
+     halo exchange and the all-reduce equal to its anchor and to the
+     single-device count (count, count_async, scan_many); the ladder's
+     step 1 (dense32's text) and step 2 (2 MiB of 'A' at cap 1024);
+     DistributedPositions (fp m=32 over the corpus, the exact tier over
+     the 4 MiB prefix); sigma = 256 on a 64 MiB byte text against the
+     single-device counts;
+   - distributed, world size 2 on gloo: two processes of this script
+     (--rank R 2 DIR), both on cuda:0, read their halves of the corpus
+     file and count the three anchors through make_distributed("fast"),
+     one engine per stage kind, and pattern 0 of the m=8 set planted
+     across the rank boundary at offsets -7 to 0;
+   - the command line: --algo all --verify on the 4 MiB prefix, --stream
+     --positions (m=32) on the corpus, and `python -m
+     tpu_smatcher_torch.cli ... --devices 2`;
 5. times each path (median per-scan over 5 reps, CUDA events) on the
    kernels and on the plain versions (the mixed scan beside the sum of its
-   groups' make_fast tiers), each kernel against its plain version
+   groups' make_fast tiers; the world-1 distributed count beside
+   make_fast's at each tier, and the world-2 ranks' own times), each
+   kernel against its plain version
    and its bound, and words_view against one PyTorch call.  Each kernel is
    first held against its plain version, exactly, on the inputs the main
    paths gave it (the cascade at every bench tier's stages, filter_mask
@@ -81,6 +99,7 @@ import contextlib
 import functools
 import itertools
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -106,6 +125,18 @@ MAX_RETRIES = 6
 #: seed of the shuffle of its FASTA pattern file
 MIXED_M = (8, 16, 32)
 MIXED_SEED = 9
+#: the distributed phase: the world-2 ranks' engines, one per stage kind
+#: (the exact chain, wm, sog, the wid + fpset chain), each on bench.py's
+#: p=10k set of its m; the offsets from the rank boundary at which they
+#: plant pattern 0 of the m=8 set; how long the ranks may take
+W2_ENGINES = (("ac", 8), ("wm", 8), ("sog8", 8), ("ac", 32), ("wm", 32),
+              ("sog32", 32))
+W2_OFFSETS = range(-7, 1)
+W2_TIMEOUT_S = 600
+#: the sigma = 256 cases: a 64 MiB byte text, not a multiple of 8
+S256_N = 64 * MiB - 3
+#: the ladder's step-2 cell: 'A'*16 over an all-'A' text at cap 1024
+ALL_MATCH_N, ALL_MATCH_CAP = 2 * MiB, 1024
 #: the cascade's run (consecutive starts per thread) and tile (starts per
 #: block iteration; the exact kernels' are kernel_cases'): the kernel checks
 #: take start counts around both
@@ -1439,6 +1470,351 @@ def mixed_path(text, tdev, codes, gates, total):
 
 
 # ---------------------------------------------------------------------------
+# distribution and the command line
+# ---------------------------------------------------------------------------
+
+def distributed_path(tdev, codes, gates, fpos, named, slot_pats, dense,
+                     total):
+    """World size 1 on NCCL (this process, cuda:0): make_distributed over
+    bench.py's five tiers and the eleven engines of the engines phase, each
+    count through the halo exchange and the all-reduce, equal to its
+    anchor and to the single-device count of the same scanner (count,
+    count_async, scan_many); the sharded ladder (dense32's text flags the
+    overflow and counts exactly, step 1; an all-match text at cap 1024,
+    step 2); DistributedPositions (fp m=32 over the corpus, the exact tier
+    over the 4 MiB prefix); sigma = 256 on a 64 MiB byte text.  Each group
+    is driven with the launch counters at 0, then checked.  Returns
+    {tier name: its DistributedCounter}."""
+    import numpy as np
+    import torch
+    from tpu_smatcher_torch import make_distributed, make_engine, make_fast
+    from tpu_smatcher_torch.core import datagen
+    from tpu_smatcher_torch.core.alphabet import Alphabet
+    from tpu_smatcher_torch.core.patterns import PatternSet
+    from tpu_smatcher_torch.ops import cuda_filter as cf
+    from tpu_smatcher_torch.parallel import DistributedPositions, make_mesh
+
+    mesh = make_mesh(1, device="cuda")
+    log(f"distributed world 1: {mesh}")
+    assert mesh.backend == "nccl" and mesh.size == 1
+    ab = Alphabet.dna()
+    secs = {}
+    t0 = time.perf_counter()
+    reset_launches()
+    tiers, got = {}, {}
+    for name, m, p, anchor in TIERS:
+        dc = make_distributed("fast", PatternSet(codes[name], ab), mesh)
+        tiers[name] = dc
+        got[name] = (dc.count(tdev), dc.count_async(tdev).result(),
+                     dc.scan_many([tdev, tdev[:N_GATE]]),
+                     dc.fast.count(tdev))
+    read_launches("distributed world 1 tiers", (
+        "exact_count_guard", "cascade", "words_view"), total)
+    for name, m, p, anchor in TIERS:
+        c, a, many, single = got[name]
+        log(f"distributed tier {name} (m={m} p={p}): count {c}, count_async "
+            f"{a}, scan_many (corpus, 4 MiB prefix) {many}; single-device "
+            f"{single} (anchor {anchor}, gate {len(gates[name])})")
+        assert c == a == single == anchor, f"distributed {name}: {c} / {a}"
+        assert many == [anchor, len(gates[name])], f"{name}: {many}"
+    secs["tiers"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    pats = bench_pattern_sets(codes)
+    anchors = {m: a for _, m, p, a in TIERS if p == 10_000}
+    reset_launches()
+    got = {}
+    for name, m in ENGINE_RUNS:
+        dc = make_distributed(name, pats[m], mesh)
+        got[name, m] = (dc.count(tdev), dc.count_async(tdev).result(),
+                        dc.scan_many([tdev, tdev]),
+                        named[name, m].count(tdev))
+    read_launches("distributed world 1 engines", ("stages", "words_view"),
+                  total)
+    for (name, m), (c, a, many, single) in got.items():
+        log(f"distributed engine {name} m={m}: count {c}, count_async {a}, "
+            f"scan_many {many}, single-device {single} (anchor "
+            f"{anchors[m]})")
+        assert c == a == single == anchors[m], f"distributed {name} m={m}"
+        assert many == [c, c], f"distributed {name} m={m}: {many}"
+    secs["engines"] = time.perf_counter() - t0
+
+    # the sharded ladder: step 1 on dense32's text, step 2 on an all-match
+    # text (a filter_mask launch per dense pass and per piece)
+    t0 = time.perf_counter()
+    _, t2, d_truth = dense
+    reset_launches()
+    dc = make_distributed("fast", slot_pats, mesh)
+    raw = dc.count_with_overflow(t2)
+    mask0 = cf.LAUNCHES["filter_mask"]
+    d_count = dc.count(t2)
+    d_passes = cf.LAUNCHES["filter_mask"] - mask0
+    z = torch.zeros(ALL_MATCH_N, dtype=torch.uint8, device="cuda")
+    dz = make_distributed("fast", PatternSet(np.zeros((1, 16), np.uint8), ab),
+                          mesh, cap=ALL_MATCH_CAP)
+    z_raw = dz.count_with_overflow(z)
+    mask0 = cf.LAUNCHES["filter_mask"]
+    z_count = dz.count(z)
+    z_passes = cf.LAUNCHES["filter_mask"] - mask0
+    read_launches("distributed ladder", ("filter_slots", "filter_mask",
+                                         "words_view"), total)
+    secs["ladder"] = time.perf_counter() - t0
+    log(f"distributed ladder: dense32 raw {raw}, count {d_count} (truth "
+        f"{d_truth}), {d_passes} dense passes; all-match ({ALL_MATCH_N} "
+        f"bytes, cap {ALL_MATCH_CAP}) raw {z_raw}, count {z_count} (truth "
+        f"{ALL_MATCH_N - 15}), {z_passes} dense passes (the dense shard "
+        f"pass, then the pieces), {secs['ladder']:.1f} s")
+    assert raw[1] and d_count == d_truth, "distributed ladder step 1"
+    assert z_raw[1] and z_count == ALL_MATCH_N - 15, "ladder step 2"
+    assert z_passes > 2, "the all-match text did not reach the pieces"
+
+    t0 = time.perf_counter()
+    reset_launches()
+    dpos = DistributedPositions(tiers["fp"].fast, mesh).positions(tdev)
+    epos = DistributedPositions(tiers["exact"].fast, mesh).positions(
+        tdev[:N_GATE])
+    read_launches("distributed positions", (
+        "exact_mask", "filter_mask", "words_view"), total)
+    secs["positions"] = time.perf_counter() - t0
+    log(f"distributed positions: fp m=32 {len(dpos)} (FastScanner "
+        f"{len(fpos)}), exact on the 4 MiB prefix {len(epos)} (gate "
+        f"{len(gates['exact'])})")
+    assert np.array_equal(dpos, fpos), "distributed fp positions"
+    assert np.array_equal(epos, gates["exact"]), "distributed exact pos"
+
+    # sigma = 256: test_sigma256_wrap_correction's and
+    # _zero_pad_pattern_subtracted's cases at 64 MiB
+    t0 = time.perf_counter()
+    ab256 = Alphabet.byte()
+    stext = datagen.generate_text(S256_N, ab256, seed=33)
+    spats = datagen.generate_patterns(stext, 32, 8, ab256, frac_present=0.6,
+                                      seed=34)
+    stext = datagen.plant(stext, spats.codes[0], [S256_N - 8, S256_N - 11])
+    zpats = PatternSet(np.zeros((1, 8), np.uint8), ab256)
+    ztext = datagen.plant(stext, zpats.codes[0], [500, S256_N - 8])
+    reset_launches()
+    got = {}
+    for label, ps, host in (("wm", spats, stext), ("fast", spats, stext),
+                            ("ac", spats, stext), ("wm zero", zpats, ztext)):
+        name = label.split()[0]
+        t = torch.from_numpy(host).cuda()
+        one = make_fast(ps) if name == "fast" else make_engine(name, ps)
+        dc = make_distributed(name, ps, mesh)
+        got[label] = (dc.count(t), dc.count(host), one.count(t))
+    read_launches("distributed sigma=256", ("stages", "words_view"), total)
+    secs["sigma256"] = time.perf_counter() - t0
+    log(f"distributed sigma=256 ({S256_N} bytes; device shard, host text, "
+        f"single device): {got}")
+    for label, (c, h, one) in got.items():
+        assert c == h == one >= (2 if "zero" in label else 1), label
+    log("distributed world 1 phases (host clock): " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in secs.items()))
+    return tiers
+
+
+def world2_path(text, tdev, codes, total):
+    """World size 2 on gloo, both ranks on cuda:0 (NCCL refuses two ranks
+    on one card): two spawned processes of this script (rank_main) read
+    their halves of the corpus from a file (load_corpus_shards) and count
+    the three anchors through make_distributed("fast") and one engine per
+    stage kind, and the corpus with pattern 0 of the m=8 set planted across
+    the rank boundary at each offset from -(m-1) to 0, against this
+    process's single-device counts.  A failing rank fails the run.  Returns
+    the ranks' results."""
+    import tempfile
+    import torch
+    from tpu_smatcher_torch import make_fast
+
+    t_start = time.perf_counter()
+    pats = bench_pattern_sets(codes)
+    anchors = {m: a for _, m, p, a in TIERS if p == 10_000}
+    per = N_FULL // 2
+    p0 = torch.from_numpy(pats[8].codes[0]).cuda()
+    one = make_fast(pats[8])
+    plants = {}
+    for d in W2_OFFSETS:
+        t = tdev.clone()
+        t[per + d:per + d + 8] = p0
+        plants[str(d)] = one.count(t)
+        del t
+    with tempfile.TemporaryDirectory() as tmp:
+        text.tofile(os.path.join(tmp, "corpus.bin"))
+        for m, ps in pats.items():
+            ps.save(os.path.join(tmp, f"pats{m}.npz"))
+        cmd = [sys.executable, os.path.abspath(__file__), "--rank"]
+        procs = [subprocess.Popen(cmd + [str(r), "2", tmp],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for r in range(2)]
+        try:
+            outs = [p.communicate(timeout=W2_TIMEOUT_S)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            for line in out.strip().splitlines():
+                log(f"  [rank {r}] {line}")
+            assert p.returncode == 0, f"world 2: rank {r} rc {p.returncode}"
+        results = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                results.append(json.load(f))
+    for r, res in enumerate(results):
+        assert res["backend"] == "gloo" and res["device"] == "cuda:0", res
+        for m, c in res["fast"].items():
+            assert c == anchors[int(m)], f"world 2 rank {r} fast m={m}: {c}"
+        for key, c in res["engines"].items():
+            m = int(key.split("=")[1])
+            assert c == anchors[m], f"world 2 rank {r} {key}: {c}"
+        assert res["plants"] == plants, \
+            f"world 2 rank {r} plants {res['plants']} != {plants}"
+        for k, v in res["launches"].items():
+            total[k] += v
+        for k in ("exact_count_guard", "cascade", "stages", "words_view"):
+            assert res["launches"][k] > 0, f"world 2 rank {r}: {k}"
+    log(f"world 2: boundary plants at offsets {list(W2_OFFSETS)}: counts "
+        f"{plants} (single device) on both ranks; launches per rank "
+        f"{[res['launches'] for res in results]}; phase "
+        f"{time.perf_counter() - t_start:.1f} s")
+    return results
+
+
+def rank_main(argv):
+    """One rank of world2_path: argv[2] is the rank, argv[3] the world
+    size, argv[4] the directory with the corpus, the pattern sets and the
+    group's FileStore.  Writes rank<r>.json there."""
+    import torch
+    import torch.distributed as dist
+    from tpu_smatcher_torch import make_distributed
+    from tpu_smatcher_torch.core.patterns import PatternSet
+    from tpu_smatcher_torch.ops import cuda_filter as cf
+    from tpu_smatcher_torch.parallel import (init_distributed,
+                                             load_corpus_shards, make_mesh)
+    rank, world, tmp = int(argv[2]), int(argv[3]), argv[4]
+    t0 = time.perf_counter()
+    init_distributed(num_processes=world, process_id=rank, device="cuda",
+                     store=dist.FileStore(os.path.join(tmp, "store"), world))
+    mesh = make_mesh(world, device="cuda")
+    shard, n = load_corpus_shards(os.path.join(tmp, "corpus.bin"), mesh,
+                                  sigma=4)
+    pats = {m: PatternSet.load(os.path.join(tmp, f"pats{m}.npz"))
+            for m in (8, 16, 32)}
+    log(f"{mesh}: shard of {int(shard.shape[0])} bytes read in "
+        f"{time.perf_counter() - t0:.1f} s")
+    reset_launches()
+    fast = {m: make_distributed("fast", ps, mesh) for m, ps in pats.items()}
+    out = {"backend": mesh.backend, "device": str(mesh.device)}
+    out["fast"] = {str(m): dc.count(shard, n=n) for m, dc in fast.items()}
+    out["engines"] = {f"{name} m={m}": make_distributed(
+        name, pats[m], mesh).count(shard, n=n) for name, m in W2_ENGINES}
+    per = int(shard.shape[0])
+    lo = rank * per
+    p0 = torch.from_numpy(pats[8].codes[0]).cuda()
+    out["plants"] = {}
+    for d in W2_OFFSETS:
+        g = per + d                       # the plant's global start
+        a, b = max(g, lo), min(g + 8, lo + per)
+        s = shard.clone()
+        if a < b:
+            s[a - lo:b - lo] = p0[a - g:b - g]
+        out["plants"][str(d)] = fast[8].count(s, n=n)
+        del s
+    out["launches"] = dict(cf.LAUNCHES)
+    out["ms"] = {str(m): cuda_ms(lambda: dc.count_async(shard, n=n).result())
+                 for m, dc in fast.items()}
+    log(f"counts {out['fast']} {out['engines']}; ms/scan {out['ms']}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def cli_path(text, codes, gates, fpos, total):
+    """The command line: --algo all --verify on the 4 MiB prefix with the
+    m=8 p=10k set (in this process, launches counted; every engine agrees
+    with the ground truth), --stream --positions on the corpus with the
+    m=32 set (5,000 positions, as FastScanner's), and `python -m
+    tpu_smatcher_torch.cli ... --devices 2` (two gloo ranks on cuda:0, the
+    same count)."""
+    import io
+    import tempfile
+    import numpy as np
+    from tpu_smatcher_torch import cli
+
+    t0 = time.perf_counter()
+    pats = bench_pattern_sets(codes)
+    gate = len(gates["exact"])
+
+    def run_cli(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            try:
+                cli.main(argv)
+            except SystemExit as e:
+                raise AssertionError(f"cli {argv} exited {e.code}") from e
+        return buf.getvalue()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = os.path.join(tmp, "prefix.bin")
+        corpus = os.path.join(tmp, "corpus.bin")
+        text[:N_GATE].tofile(prefix)
+        text.tofile(corpus)
+        p8 = pats[8].save(os.path.join(tmp, "p8.npz"))
+        p32 = pats[32].save(os.path.join(tmp, "p32.npz"))
+        base = ["--text", prefix, "--patterns", p8, "--m", "8",
+                "--alphabet", "4"]
+        reset_launches()
+        out = run_cli(base + ["--algo", "all", "--verify"])
+        read_launches("cli --algo all", ("exact_count", "stages",
+                                         "stages_flat"), total)
+        res = json.loads(out.strip().splitlines()[-1])
+        log("cli --algo all --verify (4 MiB): " + " | ".join(
+            line for line in out.strip().splitlines()[:-1]))
+        assert "ALL ENGINES AGREE" in out, "cli: engines disagree"
+        assert [r["engine"] for r in res] == ["ac", "sh", "sbom", "wm",
+                                              "fast", "sog8"]
+        assert all(r["matches"] == r["ground_truth"] == gate for r in res)
+
+        reset_launches()
+        pos_path = os.path.join(tmp, "pos.npy")
+        out = run_cli(["--stream", "--text", corpus, "--patterns", p32,
+                       "--m", "32", "--alphabet", "4", "--positions",
+                       pos_path, "--json"])
+        read_launches("cli --stream --positions", ("filter_mask",
+                                                   "words_view"), total)
+        pos = np.load(pos_path)
+        res = json.loads(out.strip().splitlines()[-1])
+        log(f"cli --stream --positions (m=32, 256 MiB): count "
+            f"{res['matches']}, {len(pos)} positions")
+        assert res["matches"] == len(pos) == len(fpos) == TIERS[2][3]
+        assert np.array_equal(pos, fpos), "cli positions"
+
+        # its own session, so that a timeout kills the ranks it spawns too
+        p = subprocess.Popen(
+            [sys.executable, "-m", "tpu_smatcher_torch.cli"] + base
+            + ["--algo", "fast", "--devices", "2", "--json"],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            start_new_session=True)
+        try:
+            out, err = p.communicate(timeout=W2_TIMEOUT_S)
+        finally:
+            if p.poll() is None:
+                os.killpg(p.pid, 9)
+                p.communicate()
+        log(f"cli --devices 2: rc {p.returncode}; stderr "
+            f"{err.strip()[-400:]!r}; stdout {out.strip()[-300:]!r}")
+        assert p.returncode == 0, "cli --devices 2 failed"
+        assert "backend gloo" in err
+        assert json.loads(out.strip().splitlines()[-1])[
+            "matches"] == gate, "cli --devices 2 count"
+    log(f"cli phase {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
 # timings
 # ---------------------------------------------------------------------------
 
@@ -1806,6 +2182,26 @@ def engines_timings(card, ck, tdev, engines, tier_ms):
     return per_kernel, chain_times
 
 
+def distributed_timings(card, tdev, tiers, tier_ms, w2):
+    """World 1 (NCCL) ms/scan of each tier beside make_fast's in this run,
+    and the ratio; the world-2 ranks' ms/scan (gloo, both ranks on one
+    card, each rank timing its own count_async with the other running);
+    profiles of the world-1 exact and fp m=32 tiers."""
+    for name, m, p, _ in TIERS:
+        dc = tiers[name]
+        ms = cuda_ms(lambda: dc.count_async(tdev).result())
+        log(f"[{card}] distributed world 1 (nccl) {name}: {ms:.3f} ms/scan; "
+            f"make_fast {tier_ms[name]:.3f} ms/scan; ratio "
+            f"{ms / tier_ms[name]:.3f}")
+    for r, res in enumerate(w2):
+        log(f"[{card}] distributed world 2 (gloo, one card) rank {r}: "
+            + ", ".join(f"m={m} {ms:.3f} ms/scan"
+                        for m, ms in res["ms"].items()))
+    for name in ("exact", "fp"):
+        profile(card, f"distributed world 1 {name}",
+                lambda: tiers[name].count_async(tdev).result())
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1841,9 +2237,18 @@ def main() -> int:
         named = engines_path(text, tdev, codes, fpos, pats, dense, total)
         t3 = time.perf_counter()
         mixed = mixed_path(text, tdev, codes, gates, total)
+        t4 = time.perf_counter()
+        tiers = distributed_path(tdev, codes, gates, fpos, named,
+                                 pats, dense, total)
+        t5 = time.perf_counter()
+        w2 = world2_path(text, tdev, codes, total)
+        t6 = time.perf_counter()
+        cli_path(text, codes, gates, fpos, total)
     log(f"main paths done at {time.perf_counter() - t0:.1f} s (positions "
         f"phase {t2 - t1:.1f} s, engines phase {t3 - t2:.1f} s, mixed "
-        f"phase {time.perf_counter() - t3:.1f} s); launches {total}")
+        f"phase {t4 - t3:.1f} s, distributed world 1 {t5 - t4:.1f} s, "
+        f"world 2 {t6 - t5:.1f} s, cli {time.perf_counter() - t6:.1f} s); "
+        f"launches {total}")
     per_kernel, tier_ms = timings(card, ck, tdev, engines, slot_eng, dense,
                                   sat)
     t1 = time.perf_counter()
@@ -1853,6 +2258,7 @@ def main() -> int:
                                                   tier_ms)
     per_kernel.update(engine_kernels)
     mixed_timings(card, tdev, mixed, tier_ms)
+    distributed_timings(card, tdev, tiers, tier_ms, w2)
     log(f"timings done at {time.perf_counter() - t0:.1f} s (positions "
         f"phase {t2 - t1:.1f} s, engines phase "
         f"{time.perf_counter() - t2:.1f} s)")
@@ -1873,4 +2279,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(rank_main(sys.argv) if sys.argv[1:2] == ["--rank"] else main())

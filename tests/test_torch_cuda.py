@@ -765,3 +765,57 @@ def test_checkpoint_loaded_on_the_card_counts_like_cpu(cuda, tmp_path, m):
         make_engine_from_tables("fast", on_cpu, device=cuda)
     with pytest.raises(ValueError, match="fast tables on"):
         make_engine_from_tables("fast", on_card, device="cpu")
+
+
+@pytest.fixture
+def nccl_mesh(cuda):
+    """This process as a one-rank NCCL group on the card."""
+    from tpu_smatcher_torch.parallel import make_mesh
+    mesh = make_mesh(1, device="cuda")
+    assert mesh.backend == "nccl" and mesh.device.type == "cuda"
+    return mesh
+
+
+@pytest.mark.parametrize("name,m", [("fast", 8), ("fast", 32), ("wm", 8),
+                                    ("ac", 32)])
+def test_distributed_world1_counts_like_one_device(nccl_mesh, name, m):
+    """make_distributed on a one-rank NCCL group: the halo exchange and
+    the all-reduce run, and count, count_async and scan_many equal the
+    single-device scanner's count and the oracle's."""
+    from tpu_smatcher_torch import make_distributed
+    text, pats = make_case(4, m, 300, 1 << 20, seed=101 + m)
+    t = torch.from_numpy(text).cuda()
+    single = make_fast(pats) if name == "fast" else make_engine(name, pats)
+    want = single.count(t)
+    assert want == datagen.count_matches(text, pats)
+    dc = make_distributed(name, pats, nccl_mesh)
+    assert dc.count(t) == dc.count_async(t).result() == want
+    assert dc.scan_many([t, t[:1 << 19]]) == [
+        want, datagen.count_matches(text[:1 << 19], pats)]
+    assert dc.count(text) == want                 # a host text, sharded
+
+
+@pytest.mark.parametrize("m", [8, 32])
+def test_distributed_positions_on_the_card(nccl_mesh, m):
+    from tpu_smatcher_torch.parallel import DistributedPositions
+    text, pats = make_case(4, m, 300, 1 << 20, seed=111 + m)
+    eng = make_fast(pats, cap=1 << 12)
+    t = torch.from_numpy(text).cuda()
+    got = DistributedPositions(eng, nccl_mesh).positions(t)
+    np.testing.assert_array_equal(got, eng.positions(t))
+    np.testing.assert_array_equal(
+        got, np.flatnonzero(datagen.match_starts(text, pats)))
+
+
+def test_cli_on_the_card(cuda, capsys):
+    """python -m tpu_smatcher_torch.cli runs on the card by default: every
+    engine agrees with the ground truth, exit code 0."""
+    import json
+    from tpu_smatcher_torch import cli
+    cli.main(["--synthetic", "--n", "300000", "--m", "8", "--p-size", "200",
+              "--alphabet", "4", "--algo", "all", "--verify"])
+    out = capsys.readouterr().out
+    assert "ALL ENGINES AGREE" in out
+    res = json.loads(out.strip().splitlines()[-1])
+    assert len(res) == 6
+    assert all(r["matches"] == r["ground_truth"] for r in res)

@@ -11,11 +11,13 @@ import torch
 import tpu_smatcher as jts
 from tpu_smatcher.automata.kmp import kmp_count as jkmp_count
 from tpu_smatcher.automata.kmp import pre_kmp as jpre_kmp
+from tpu_smatcher.utils.debug import dprint as jdprint
 
 import tpu_smatcher_torch as ts
 from tpu_smatcher_torch.automata import kmp_count, pre_kmp
 from tpu_smatcher_torch.core import datagen
-from tpu_smatcher_torch.utils import PhaseTimer, emit_jsonl, time_fn, trace
+from tpu_smatcher_torch.utils import (PhaseTimer, dprint, emit_jsonl,
+                                      time_fn, trace)
 
 from torch_cases import jax_pats, make_case
 
@@ -99,3 +101,22 @@ def test_scan_on_the_cpu_equals_jax_scan(sigma, m, engine):
         datagen.count_matches(text, pats)
     assert r["engine"] == engine and r["bytes"] == want["bytes"] == 30_000
     assert r["bytes_per_s"] > 0 and r["scan_s"] > 0
+
+
+@pytest.mark.parametrize("arg", ["tensor", "scalar"])
+def test_dprint_formats_like_jax(arg, capfd):
+    """dprint formats a tensor argument read to the host, and a python
+    scalar, as the JAX package's dprint prints the same values."""
+    import jax.numpy as jnp
+    if arg == "tensor":
+        jargs = (jnp.arange(3, dtype=jnp.int32), jnp.float32(1.5))
+        targs = (torch.arange(3, dtype=torch.int32), torch.tensor(1.5))
+        want = "v=[0 1 2] f=1.5"
+    else:
+        jargs = targs = (7, 2.5)
+        want = "v=7 f=2.5"
+    jdprint("v={} f={}", *jargs)
+    jout = capfd.readouterr().out
+    dprint("v={} f={}", *targs)
+    out = capfd.readouterr().out
+    assert out == jout == want + "\n"

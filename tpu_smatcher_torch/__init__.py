@@ -1,21 +1,24 @@
 """tpu_smatcher_torch: the PyTorch/CUDA port of tpu_smatcher.
 
 The fast path, make_fast(patterns, device=...).count(text), the seven
-named engines, make_engine(name, patterns, device=...), and mixed-length
-pattern sets, make_mixed(MixedPatternSet, device=...), run on an NVIDIA
-H100 through hand-written CUDA kernels (csrc/, built with nvcc at first
-use) and on the CPU through their plain torch versions.  The port keeps
+named engines, make_engine(name, patterns, device=...), mixed-length
+pattern sets, make_mixed(MixedPatternSet, device=...), and the count
+distributed over torch.distributed ranks, make_distributed(name,
+patterns, mesh), run on an NVIDIA H100 through hand-written CUDA kernels
+(csrc/, built with nvcc at first use) and on the CPU through their plain
+torch versions.  The port keeps
 its own host-side alphabets, pattern sets, corpus readers, data generator
-and table checkpoints (core/), table builders (automata/) and timing
-utilities (utils/), and imports nothing of tpu_smatcher.
+and table checkpoints (core/), table builders (automata/), timing and
+debug utilities (utils/), the rank layout (parallel/) and a command line
+(python -m tpu_smatcher_torch.cli), and imports nothing of tpu_smatcher.
 """
 
 import time
 
 from tpu_smatcher_torch.core.alphabet import Alphabet
 from tpu_smatcher_torch.core.patterns import MixedPatternSet, PatternSet
-from tpu_smatcher_torch.engines import (ENGINE_NAMES, make_engine, make_fast,
-                                        make_mixed)
+from tpu_smatcher_torch.engines import (ENGINE_NAMES, make_distributed,
+                                        make_engine, make_fast, make_mixed)
 
 
 def scan(text, patterns, *, engine: str = "fast", reps: int = 1,
@@ -50,4 +53,5 @@ def scan(text, patterns, *, engine: str = "fast", reps: int = 1,
 
 
 __all__ = ["Alphabet", "ENGINE_NAMES", "MixedPatternSet", "PatternSet",
-           "make_engine", "make_fast", "make_mixed", "scan"]
+           "make_distributed", "make_engine", "make_fast", "make_mixed",
+           "scan"]

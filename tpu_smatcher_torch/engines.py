@@ -153,6 +153,38 @@ def make_fast(patterns: PatternSet, *, device="cuda", **opts):
                                   device=dev), **opts)
 
 
+def make_distributed(name: str, patterns: PatternSet, mesh, *,
+                     device="cuda", **opts):
+    """Distributed engine over the ranks of `mesh` (parallel.make_mesh):
+    tables built on every rank, text sharded with a halo exchange, count
+    all-reduced (parallel/dist.py).  `device` is the mesh's device type; the
+    engine goes to this rank's device (mesh.device).  name: 'fast' (opts:
+    make_fast's) or one of ENGINE_NAMES (opts: make_engine's).
+
+    The per-shard scan is the fast path when one is active (FastScanner's
+    core, or the engine's EngineFastPath.core), else the engine's portable
+    core; a FastScanner over the same tables rides along as the exact
+    overflow ladder, so counts are TOTAL at any match density (every engine
+    counts the same windows).  The JAX package has no active fast path off
+    the TPU and attaches no ladder there; the port's runs on the CPU too,
+    through the plain versions, with the same counts."""
+    from tpu_smatcher_torch.ops.common import active_fastpath
+    from tpu_smatcher_torch.parallel.dist import DistributedCounter
+    if torch.device(device).type != mesh.device.type:
+        raise ValueError(f"device={device!r} but the mesh's rank runs on "
+                         f"{mesh.device}")
+    if name == "fast":
+        eng = make_fast(patterns, device=mesh.device, **opts)
+        core, fast = eng.core, eng
+    else:
+        eng = make_engine(name, patterns, device=mesh.device, **opts)
+        fp = active_fastpath(eng)
+        core = eng.core if fp is None else fp.core
+        fast = None if fp is None else fp._fallback_scanner()
+    return DistributedCounter(core, mesh, m=patterns.m, sigma=patterns.sigma,
+                              fast=fast)
+
+
 # ---------------------------------------------------------------------------
 # mixed lengths
 # ---------------------------------------------------------------------------

@@ -200,6 +200,13 @@ class EngineScanner:
     def positions(self, text) -> np.ndarray:
         return fastpath_positions(self, text)
 
+    def core(self, ext) -> torch.Tensor:
+        """Per-shard 0-d int32 count of ext's windows by the portable scan,
+        no host sync: what distribution sums over shards when no fast path
+        runs.  The shards' pad byte sigma indexes the tables' pad column
+        (pad_col), which never matches."""
+        return self._count_core(self._as_text(ext))
+
     def count_async(self, text):
         return fastpath_count_async(self, text)
 

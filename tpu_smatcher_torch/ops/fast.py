@@ -1011,9 +1011,7 @@ class FastScanner:
         n = int(text.shape[0])
         m = self.m
         min_chunk = max(self.cap // 4, 1)
-        fn = self._device_count_dense if self._kernels() else (
-            lambda t: fast_count_core(t, self.ft, tile=self.tile,
-                                      cap=self.cap))
+        fn = self._dense_core()
         work = [(0, n - m + 1)]
         inflight, total = [], 0
         while work or inflight:
@@ -1110,6 +1108,17 @@ class FastScanner:
                                             sigma=ft.sigma, guard=True),
                     self._zero(t))
         return self._fp_device_count(t)
+
+    def _dense_core(self):
+        """The per-piece (count, overflow) scan that cannot overflow on
+        pieces of <= cap/4 starts: the row-dense mask pass on the kernels
+        (their plain versions on the CPU), the tiled fast_count_core beyond
+        MAX_KERNEL_M.  The distributed ladder (parallel/dist.py) builds its
+        per-shard passes from it."""
+        if self._kernels():
+            return self._device_count_dense
+        return functools.partial(fast_count_core, ft=self.ft,
+                                 tile=self.tile, cap=self.cap)
 
     # -- streaming -----------------------------------------------------------
 
