@@ -543,6 +543,9 @@ def main(argv=None):
                                                      make_mesh)
             init_distributed(device=args.device)
             world = dist.get_world_size()
+            if dist.get_rank() == 0:
+                print(f"ranks: {world} (torchrun), backend "
+                      f"{dist.get_backend()}", file=sys.stderr)
             if args.devices != world:
                 sys.exit(f"--devices {args.devices} != the torchrun world "
                          f"size {world}")
