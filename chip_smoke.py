@@ -289,6 +289,14 @@ def reset_launches():
         cf.LAUNCHES[k] = 0
 
 
+def launched(fn):
+    """(fn(), the launches fn made, by kernel)."""
+    from tpu_smatcher_torch.ops import cuda_filter as cf
+    before = dict(cf.LAUNCHES)
+    out = fn()
+    return out, {k: v - before[k] for k, v in cf.LAUNCHES.items()}
+
+
 def read_launches(path, kernels, total):
     """The counts of the path just driven; each of its kernels must have
     launched.  Adds them to total."""
@@ -1483,8 +1491,10 @@ def distributed_path(tdev, codes, gates, fpos, named, slot_pats, dense,
     overflow and counts exactly, step 1; an all-match text at cap 1024,
     step 2); DistributedPositions (fp m=32 over the corpus, the exact tier
     over the 4 MiB prefix); sigma = 256 on a 64 MiB byte text.  Each group
-    is driven with the launch counters at 0, then checked.  Returns
-    {tier name: its DistributedCounter}."""
+    is driven with the launch counters at 0, then checked; the
+    single-device counts it is held to are taken before, so a group's
+    counts are its distributed calls' alone, and each tier and engine must
+    launch its own kernel.  Returns {tier name: its DistributedCounter}."""
     import numpy as np
     import torch
     from tpu_smatcher_torch import make_distributed, make_engine, make_fast
@@ -1500,42 +1510,54 @@ def distributed_path(tdev, codes, gates, fpos, named, slot_pats, dense,
     ab = Alphabet.dna()
     secs = {}
     t0 = time.perf_counter()
-    reset_launches()
-    tiers, got = {}, {}
+    tiers, single, got, own = {}, {}, {}, {}
     for name, m, p, anchor in TIERS:
-        dc = make_distributed("fast", PatternSet(codes[name], ab), mesh)
-        tiers[name] = dc
-        got[name] = (dc.count(tdev), dc.count_async(tdev).result(),
-                     dc.scan_many([tdev, tdev[:N_GATE]]),
-                     dc.fast.count(tdev))
+        tiers[name] = make_distributed("fast", PatternSet(codes[name], ab),
+                                       mesh)
+        single[name] = tiers[name].fast.count(tdev)
+    reset_launches()
+    for name, m, p, anchor in TIERS:
+        dc = tiers[name]
+        got[name], own[name] = launched(lambda: (
+            dc.count(tdev), dc.count_async(tdev).result(),
+            dc.scan_many([tdev, tdev[:N_GATE]])))
     read_launches("distributed world 1 tiers", (
         "exact_count_guard", "cascade", "words_view"), total)
     for name, m, p, anchor in TIERS:
-        c, a, many, single = got[name]
+        kern = "exact_count_guard" if name == "exact" else "cascade"
+        assert own[name][kern] > 0, f"distributed {name}: no {kern} launch"
+        (c, a, many), single_c = got[name], single[name]
         log(f"distributed tier {name} (m={m} p={p}): count {c}, count_async "
             f"{a}, scan_many (corpus, 4 MiB prefix) {many}; single-device "
-            f"{single} (anchor {anchor}, gate {len(gates[name])})")
-        assert c == a == single == anchor, f"distributed {name}: {c} / {a}"
+            f"{single_c} (anchor {anchor}, gate {len(gates[name])}); "
+            f"launches {own[name]}")
+        assert c == a == single_c == anchor, \
+            f"distributed {name}: {c} / {a}"
         assert many == [anchor, len(gates[name])], f"{name}: {many}"
     secs["tiers"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     pats = bench_pattern_sets(codes)
     anchors = {m: a for _, m, p, a in TIERS if p == 10_000}
+    dcs = {(name, m): make_distributed(name, pats[m], mesh)
+           for name, m in ENGINE_RUNS}
+    single = {key: named[key].count(tdev) for key in dcs}
     reset_launches()
-    got = {}
-    for name, m in ENGINE_RUNS:
-        dc = make_distributed(name, pats[m], mesh)
-        got[name, m] = (dc.count(tdev), dc.count_async(tdev).result(),
-                        dc.scan_many([tdev, tdev]),
-                        named[name, m].count(tdev))
+    got, own = {}, {}
+    for key, dc in dcs.items():
+        got[key], own[key] = launched(lambda: (
+            dc.count(tdev), dc.count_async(tdev).result(),
+            dc.scan_many([tdev, tdev])))
     read_launches("distributed world 1 engines", ("stages", "words_view"),
                   total)
-    for (name, m), (c, a, many, single) in got.items():
+    for (name, m), (c, a, many) in got.items():
         log(f"distributed engine {name} m={m}: count {c}, count_async {a}, "
-            f"scan_many {many}, single-device {single} (anchor "
-            f"{anchors[m]})")
-        assert c == a == single == anchors[m], f"distributed {name} m={m}"
+            f"scan_many {many}, single-device {single[name, m]} (anchor "
+            f"{anchors[m]}); stages launches {own[name, m]['stages']}")
+        assert own[name, m]["stages"] > 0, f"distributed {name} m={m}: " \
+            "the core launched no stage chain"
+        assert c == a == single[name, m] == anchors[m], \
+            f"distributed {name} m={m}"
         assert many == [c, c], f"distributed {name} m={m}: {many}"
     secs["engines"] = time.perf_counter() - t0
 
@@ -1592,15 +1614,21 @@ def distributed_path(tdev, codes, gates, fpos, named, slot_pats, dense,
     stext = datagen.plant(stext, spats.codes[0], [S256_N - 8, S256_N - 11])
     zpats = PatternSet(np.zeros((1, 8), np.uint8), ab256)
     ztext = datagen.plant(stext, zpats.codes[0], [500, S256_N - 8])
-    reset_launches()
-    got = {}
+    cases = {}
     for label, ps, host in (("wm", spats, stext), ("fast", spats, stext),
                             ("ac", spats, stext), ("wm zero", zpats, ztext)):
         name = label.split()[0]
         t = torch.from_numpy(host).cuda()
         one = make_fast(ps) if name == "fast" else make_engine(name, ps)
-        dc = make_distributed(name, ps, mesh)
-        got[label] = (dc.count(t), dc.count(host), one.count(t))
+        cases[label] = (make_distributed(name, ps, mesh), t, host,
+                        one.count(t))
+    reset_launches()
+    got = {}
+    for label, (dc, t, host, one) in cases.items():
+        (c, h), own = launched(lambda: (dc.count(t), dc.count(host)))
+        got[label] = (c, h, one)
+        if label != "fast":
+            assert own["stages"] > 0, f"distributed sigma=256 {label}"
     read_launches("distributed sigma=256", ("stages", "words_view"), total)
     secs["sigma256"] = time.perf_counter() - t0
     log(f"distributed sigma=256 ({S256_N} bytes; device shard, host text, "
@@ -1890,6 +1918,32 @@ def profile(card, label, fn, reps=3):
         f"{busy:.3f} ms, idle share {1 - busy / wall:.3f}; port kernels "
         f"{ours} events of {launches} launches (session {session}){lost}; "
         f"top: {top}")
+
+
+def host_breakdown(card, label, fn, reps=20, rows=10):
+    """Where the host's time per call of fn goes: the wall per call (host
+    clock, fn's result read back), the torch.profiler CPU-side self time
+    of the ops it ran, summed and the `rows` largest by op, each with its
+    calls per fn() call.  The wall less the ops' self time is Python and
+    the wait for the device."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    wall = (time.perf_counter() - t0) * 1e3 / reps
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(reps):
+            fn()
+    ops = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total,
+                 reverse=True)
+    own = sum(e.self_cpu_time_total for e in ops) / reps / 1e3
+    log(f"[{card}] {label} host breakdown: wall {wall:.3f} ms/call, ops' "
+        f"self CPU {own:.3f} ms/call; " + ", ".join(
+            f"{e.key} {e.self_cpu_time_total / reps:.1f} us "
+            f"({e.count / reps:g}/call)" for e in ops[:rows]))
 
 
 def kernel_time(card, ck, label, name, kern, plain, bnd, library=None):
@@ -2186,7 +2240,8 @@ def distributed_timings(card, tdev, tiers, tier_ms, w2):
     """World 1 (NCCL) ms/scan of each tier beside make_fast's in this run,
     and the ratio; the world-2 ranks' ms/scan (gloo, both ranks on one
     card, each rank timing its own count_async with the other running);
-    profiles of the world-1 exact and fp m=32 tiers."""
+    profiles of the world-1 exact and fp m=32 tiers, and the host's time
+    per world-1 exact count beside the single-device one's."""
     for name, m, p, _ in TIERS:
         dc = tiers[name]
         ms = cuda_ms(lambda: dc.count_async(tdev).result())
@@ -2200,6 +2255,10 @@ def distributed_timings(card, tdev, tiers, tier_ms, w2):
     for name in ("exact", "fp"):
         profile(card, f"distributed world 1 {name}",
                 lambda: tiers[name].count_async(tdev).result())
+    host_breakdown(card, "distributed world 1 exact",
+                   lambda: tiers["exact"].count_async(tdev).result())
+    host_breakdown(card, "single-device exact (the ladder's FastScanner)",
+                   lambda: tiers["exact"].fast.count_async(tdev).result())
 
 
 def main() -> int:

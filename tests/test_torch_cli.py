@@ -233,3 +233,42 @@ def test_cli_refusals_on_several_devices(corpus_files, tmp_path, which):
         jcli.main(argv + JAX)
     with pytest.raises(SystemExit, match=msg):
         cli.main(argv + PORT)
+
+
+@pytest.mark.parametrize("rank", [0, 1])
+def test_rank_text_reads_its_own_range(corpus_files, rank):
+    """On several ranks a --text corpus is read per rank: rank_text needs
+    no whole text (None here) and gives the rank's byte range of the file
+    and the corpus length."""
+    import torch
+    from tpu_smatcher_torch.parallel.mesh import Mesh
+    args = cli.build_parser().parse_args(_base(corpus_files) + PORT
+                                         + ["--devices", "2"])
+    text, pats = corpus_files[4], corpus_files[5]
+    shard, n = cli.rank_text(args, None, pats,
+                             Mesh(rank, 2, torch.device("cpu"), "gloo"))
+    per = len(text) // 2
+    assert n == len(text)
+    np.testing.assert_array_equal(shard.numpy(),
+                                  text[rank * per:(rank + 1) * per])
+
+
+def test_rank_text_refuses_codes_out_of_range(corpus_files, tmp_path):
+    """A code >= sigma in a rank's range raises, as loading the whole
+    --text corpus on one device does (Alphabet.validate)."""
+    import torch
+    from tpu_smatcher_torch.parallel.mesh import Mesh
+    bad = np.asarray(corpus_files[4], np.uint8).copy()
+    bad[-1] = 7
+    path = tmp_path / "bad.bin"
+    bad.tofile(path)
+    argv = ["--text", str(path), "--patterns", corpus_files[1], "--m", "8",
+            "--alphabet", "4"]
+    with pytest.raises(ValueError, match="out of range"):
+        cli.load_inputs(cli.build_parser().parse_args(argv + PORT))
+    args = cli.build_parser().parse_args(argv + PORT + ["--devices", "2"])
+    mesh = Mesh(1, 2, torch.device("cpu"), "gloo")
+    with pytest.raises(ValueError, match="out of range"):
+        cli.rank_text(args, None, corpus_files[5], mesh)
+    cli.rank_text(args, None, corpus_files[5], Mesh(0, 2, mesh.device,
+                                                    "gloo"))

@@ -18,6 +18,7 @@ from tpu_smatcher.parallel import make_mesh as jmake_mesh
 from tpu_smatcher.parallel import shard_text as jshard_text
 from tpu_smatcher.parallel.dist import DistributedCounter as JCounter
 from tpu_smatcher.parallel.dist import DistributedPositions as JPositions
+from tpu_smatcher.parallel.dist import exchange_halo as jexchange_halo
 
 import torch_dist_worker as W
 from torch_cases import jax_pats
@@ -26,7 +27,8 @@ CASES8 = [f"exact:{e}" for e in W.ENGINES] + [
     "mesh", "straddle", "uneven", "async", "async256", "s256-wm",
     "s256-fast", "s256-ac", "s256-fp", "s256-n", "s256-zero",
     "ladder-dense", "ladder-pieces", "tiny", "dry-exact", "dry-fp",
-    "dry-s256", "dry-mixed", "pos-exact", "pos-fp", "pos-dense"]
+    "dry-s256", "dry-mixed", "pos-exact", "pos-fp", "pos-dense",
+    "pos-chunk", "halo4", "halo256"]
 #: world size -> the cases its ranks run
 WORLDS = {1: ["mesh"], 2: ["mesh"], 4: ["mesh", "wrap-mode"], 8: CASES8}
 
@@ -175,6 +177,7 @@ def test_distributed_total_piece_fallback(ranks):
     got = port(ranks, 8, "ladder-pieces")
     assert got["raw_overflow"] is True
     assert got["count"] == 120_000 - 15 == truth(text, pats)
+    assert got["small"] == [], "a split left a piece below cap/4"
 
 
 def test_distribution_sigma256_wrap_mode(ranks):
@@ -237,4 +240,36 @@ def test_distributed_positions_split_pieces(ranks):
     text, pats = W.inputs("pos-dense")
     want = np.flatnonzero(jdatagen.match_starts(text, jax_pats(pats)))
     assert want.size == 120_000 - 15
-    np.testing.assert_array_equal(port(ranks, 8, "pos-dense"), want)
+    got = port(ranks, 8, "pos-dense")
+    np.testing.assert_array_equal(got["positions"], want)
+    assert got["small"] == [], "a split left a piece below cap/2"
+
+
+def test_distributed_positions_presized_pieces(ranks):
+    """positions(chunk=1000): the pieces presized within each span (the
+    shard's own windows, then the seam), the same starts as datagen's."""
+    text, pats = W.inputs("pos-chunk")
+    want = np.flatnonzero(jdatagen.match_starts(text, jax_pats(pats)))
+    np.testing.assert_array_equal(port(ranks, 8, "pos-chunk"), want)
+
+
+@pytest.mark.parametrize("case", ["halo4", "halo256"])
+def test_exchange_halo(ranks, case):
+    """Each rank's shard + halo equals the JAX package's exchange_halo
+    under shard_map on 8 devices: the right neighbour's first m-1 bytes,
+    the pad sigma after the last shard (sigma = 4), shard 0's head there
+    for sigma = 256."""
+    import jax
+    from jax import shard_map
+    from jax.sharding import PartitionSpec as P
+    text, pats = W.inputs(case)
+    mesh = jmake_mesh(8)
+    sharded, _ = jshard_text(text, mesh, sigma=pats.sigma)
+    fn = jax.jit(shard_map(
+        lambda local: jexchange_halo(local, axis="data", k=8,
+                                     halo=pats.m - 1, sigma=pats.sigma),
+        mesh=mesh, in_specs=P("data"), out_specs=P("data")))
+    want = np.asarray(fn(sharded)).reshape(8, -1)
+    got = [r[case]["ok"] for r in ranks[8]]
+    for r in range(8):
+        np.testing.assert_array_equal(got[r], want[r], err_msg=f"rank {r}")

@@ -9,6 +9,7 @@ It imports the port only, never JAX or tpu_smatcher; its result file says
 so.  The cases' inputs come from inputs(name), which the tests also call
 to run the JAX package on the same bytes."""
 
+import contextlib
 import datetime
 import json
 import os
@@ -178,6 +179,9 @@ INPUTS = {
     "pos-exact": lambda: make_case(4, 8, 64, 16_384, seed=81),
     "pos-fp": lambda: make_case(4, 16, 32, 16_384, seed=83),
     "pos-dense": _ladder_pieces,
+    "pos-chunk": lambda: make_case(4, 8, 64, 16_384, seed=81),
+    "halo4": lambda: make_case(4, 8, 32, 100_003, seed=21),
+    "halo256": lambda: make_case(256, 8, 16, 50_003, seed=28),
     "mh4": lambda: _multihost(4),
     "mh256": lambda: _multihost(256),
     "two-process": _two_process,
@@ -208,6 +212,25 @@ def _counter(pats, mesh, *, cap=None, ladder=True):
 def _engine(name, pats, mesh, **opts):
     from tpu_smatcher_torch import make_distributed
     return make_distributed(name, pats, mesh, device="cpu", **opts)
+
+
+@contextlib.contextmanager
+def _small_pieces(min_chunk):
+    """Yields a list that gets the (offset, starts) of every piece read
+    from a shard, outside its seam, with fewer than min_chunk starts: a
+    split into halves makes none."""
+    from tpu_smatcher_torch.parallel import dist
+    small, piece = [], dist._Sharded.piece
+
+    def spy(self, off, owned):
+        if off < self.per - self.halo and owned < min_chunk:
+            small.append([off, owned])
+        return piece(self, off, owned)
+    dist._Sharded.piece = spy
+    try:
+        yield small
+    finally:
+        dist._Sharded.piece = piece
 
 
 def run_case(name, mesh, data_dir):
@@ -259,8 +282,10 @@ def run_case(name, mesh, data_dir):
     if kind == "ladder-pieces":
         text, pats = inp
         dc, _ = _counter(pats, mesh, cap=1024)
-        return {"raw_overflow": dc.count_with_overflow(text)[1],
-                "count": dc.count(text)}
+        with _small_pieces(256) as small:
+            out = {"raw_overflow": dc.count_with_overflow(text)[1],
+                   "count": dc.count(text)}
+        return {**out, "small": small}
     if kind == "wrap-mode":
         text, pats = inp
         shard, n = shard_text(text, mesh, sigma=256)
@@ -287,10 +312,23 @@ def run_case(name, mesh, data_dir):
         text, pats = inp
         _, fast = _counter(pats, mesh)
         return DistributedPositions(fast, mesh).positions(text).tolist()
+    if kind == "pos-chunk":
+        text, pats = inp          # pieces presized, the seam's apart
+        _, fast = _counter(pats, mesh)
+        return DistributedPositions(fast, mesh).positions(
+            text, chunk=1000).tolist()
+    if kind in ("halo4", "halo256"):
+        from tpu_smatcher_torch.parallel.dist import exchange_halo
+        text, pats = inp
+        shard, _ = shard_text(text, mesh, sigma=pats.sigma)
+        return exchange_halo(shard, mesh, halo=pats.m - 1,
+                             sigma=pats.sigma).tolist()
     if kind == "pos-dense":
         text, pats = inp          # every start matches: pieces split
         _, fast = _counter(pats, mesh, cap=1024)
-        return DistributedPositions(fast, mesh).positions(text).tolist()
+        with _small_pieces(512) as small:
+            pos = DistributedPositions(fast, mesh).positions(text).tolist()
+        return {"positions": pos, "small": small}
     if kind in ("mh4", "mh256", "two-process"):
         text, pats = inp
         path = os.path.join(data_dir, f"{kind}.bin")

@@ -125,11 +125,13 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def load_inputs(args):
+def load_inputs(args, mesh=None):
+    """(text, patterns, seconds).  On several ranks (mesh) a --text corpus
+    stays on disk as a memmap: each rank reads its own byte range
+    (rank_text), and the whole file is read only where patterns are
+    sampled from it or --verify needs it."""
     from tpu_smatcher_torch.core import corpus, datagen
     from tpu_smatcher_torch.core.alphabet import Alphabet
-    from tpu_smatcher_torch.core.patterns import (MixedPatternSet,
-                                                  PatternSet, _fasta_records)
 
     ab = Alphabet.of_size(args.alphabet)
     t0 = time.time()
@@ -141,14 +143,13 @@ def load_inputs(args):
         if not args.patterns:
             sys.exit("--stream requires --patterns (patterns cannot be "
                      "sampled from an unloaded corpus)")
-        if args.devices > 1:
-            sys.exit("--stream is single-device; shard big corpora with "
-                     "parallel.multihost.load_corpus_shards instead")
         text = None
     elif args.synthetic:
         if not args.n:
             sys.exit("--synthetic requires --n")
         text = datagen.generate_text(args.n, ab, seed=args.seed)
+    elif args.text and mesh is not None:
+        text = np.memmap(args.text, dtype=np.uint8, mode="r")
     elif args.text:
         text = corpus.load_raw(args.text, Alphabet(args.alphabet)).codes
     elif args.fasta:
@@ -157,24 +158,7 @@ def load_inputs(args):
         sys.exit("one of --synthetic/--text/--fasta is required")
 
     if args.patterns:
-        if args.patterns.endswith(".npz"):
-            pats = PatternSet.load(args.patterns)
-        elif args.patterns.endswith((".fa", ".fasta")):
-            # mixed lengths are detected from the records themselves
-            records = _fasta_records(args.patterns)
-            if len({len(r) for r in records}) == 1:
-                pats = PatternSet.from_strings(records, ab)
-            else:
-                # mixed-length records: one sub-scanner per length
-                pats = MixedPatternSet.from_strings(records, ab)
-                print(f"mixed-length pattern set: lengths {pats.lengths} "
-                      f"({pats.p_size} patterns)", file=sys.stderr)
-        else:
-            raw = np.fromfile(args.patterns, dtype=np.uint8)
-            if raw.size % args.m:
-                sys.exit(f"pattern file size {raw.size} not a multiple of "
-                         f"m={args.m}")
-            pats = PatternSet(raw.reshape(-1, args.m), ab)
+        pats = load_patterns(args, ab)
     else:
         if not args.p_size:
             sys.exit("--p-size (or --patterns) is required")
@@ -182,6 +166,30 @@ def load_inputs(args):
                                          frac_present=args.frac_present,
                                          seed=args.seed + 1)
     return text, pats, time.time() - t0
+
+
+def load_patterns(args, ab):
+    """The --patterns file: a PatternSet, or a MixedPatternSet for FASTA
+    records of several lengths."""
+    from tpu_smatcher_torch.core.patterns import (MixedPatternSet,
+                                                  PatternSet, _fasta_records)
+    if args.patterns.endswith(".npz"):
+        return PatternSet.load(args.patterns)
+    if args.patterns.endswith((".fa", ".fasta")):
+        # mixed lengths are detected from the records themselves
+        records = _fasta_records(args.patterns)
+        if len({len(r) for r in records}) == 1:
+            return PatternSet.from_strings(records, ab)
+        # mixed-length records: one sub-scanner per length
+        pats = MixedPatternSet.from_strings(records, ab)
+        print(f"mixed-length pattern set: lengths {pats.lengths} "
+              f"({pats.p_size} patterns)", file=sys.stderr)
+        return pats
+    raw = np.fromfile(args.patterns, dtype=np.uint8)
+    if raw.size % args.m:
+        sys.exit(f"pattern file size {raw.size} not a multiple of "
+                 f"m={args.m}")
+    return PatternSet(raw.reshape(-1, args.m), ab)
 
 
 def save_inputs(args, text, pats) -> None:
@@ -197,17 +205,45 @@ def save_inputs(args, text, pats) -> None:
         np.asarray(text, np.uint8).tofile(args.save_corpus)
 
 
-def check_distributed(args, pats) -> None:
-    """The refusals of several ranks, made before any rank starts."""
+def check_distributed(args) -> None:
+    """The refusals of several ranks, made before any rank starts and
+    before any corpus is read (only a FASTA pattern file can mix
+    lengths)."""
+    from tpu_smatcher_torch.core.alphabet import Alphabet
     from tpu_smatcher_torch.core.patterns import MixedPatternSet
     if args.devices <= 1:
         return
-    if isinstance(pats, MixedPatternSet):
+    if args.stream:
+        raise SystemExit("--stream is single-device; shard big corpora "
+                         "with parallel.multihost.load_corpus_shards "
+                         "instead")
+    if (args.patterns and args.patterns.endswith((".fa", ".fasta"))
+            and isinstance(load_patterns(args, Alphabet.of_size(
+                args.alphabet)), MixedPatternSet)):
         raise SystemExit("mixed-length pattern sets run single-device")
     if args.tables or args.save_tables:
         raise SystemExit(
             "--tables/--save-tables are single-device options — run the "
             "checkpoint step with --devices 1")
+
+
+def rank_text(args, text, pats, mesh):
+    """(this rank's shard on its device, the corpus length): a --text
+    corpus read from the rank's own byte range of the file
+    (load_corpus_shards), any other cut from the text every rank holds
+    (shard_text)."""
+    from tpu_smatcher_torch.parallel import (host_shard_ranges,
+                                             load_corpus_shards, shard_text)
+    if not args.text:
+        return shard_text(text, mesh, sigma=pats.sigma)
+    shard, n = load_corpus_shards(args.text, mesh, sigma=pats.sigma)
+    lo, hi = host_shard_ranges(n, mesh)[mesh.rank][0]
+    if pats.sigma < 256 and hi > lo:
+        top = int(shard[:hi - lo].max())
+        if top >= pats.sigma:
+            raise ValueError(f"code {top} out of range for alphabet size "
+                             f"{pats.sigma}")
+    return shard, n
 
 
 def build_scanner(name, pats, args, dev, mesh):
@@ -300,7 +336,9 @@ def run_stream(name, scanner, args, t_build, say):
     }
 
 
-def run_engine(name, text, pats, args, dev, mesh, say):
+def run_engine(name, text, pats, args, dev, mesh, say, shard=None):
+    """One engine's result dict; `shard` is rank_text's (shard, n) on
+    several ranks."""
     from tpu_smatcher_torch.core.patterns import MixedPatternSet
     from tpu_smatcher_torch.ops.fast import device_text
 
@@ -315,11 +353,9 @@ def run_engine(name, text, pats, args, dev, mesh, say):
     if mesh is None:
         tdev = device_text(text, dev)
     else:
-        # shard once before timing (re-sharding per rep would time the
-        # host-to-device copy, not the scan); the true length rides along
-        # so that a sigma=256 count knows where the corpus ends
-        from tpu_smatcher_torch.parallel import shard_text
-        tdev, n_true = shard_text(text, mesh, sigma=pats.sigma)
+        # the true length rides along so that a sigma=256 count knows
+        # where the corpus ends
+        tdev, n_true = shard
         count_kw = {"n": n_true}
     t0 = time.time()
     count = scanner.count(tdev, **count_kw)
@@ -416,14 +452,21 @@ def engine_names(args, pats) -> list:
     return names
 
 
-def run(args, mesh=None, inputs=None) -> int:
+def run(args, mesh=None) -> int:
     """Every engine of the run on this rank; rank 0 prints.  Returns the
     exit code."""
     import torch
     from tpu_smatcher_torch.core import datagen
     from tpu_smatcher_torch.core.patterns import MixedPatternSet
 
-    text, pats, t_read = inputs or load_inputs(args)
+    text, pats, t_read = load_inputs(args, mesh)
+    shard = None
+    if mesh is not None:
+        # sharded once, before any timing: re-sharding per rep would time
+        # the read and the host-to-device copy, not the scan
+        t0 = time.time()
+        shard = rank_text(args, text, pats, mesh)
+        t_read += time.time() - t0
     lead = mesh is None or mesh.rank == 0
     if lead:
         save_inputs(args, text, pats)
@@ -438,7 +481,7 @@ def run(args, mesh=None, inputs=None) -> int:
         dev = _device(dev)
     results = []
     for name in engine_names(args, pats):
-        r = run_engine(name, text, pats, args, dev, mesh, say)
+        r = run_engine(name, text, pats, args, dev, mesh, say, shard)
         r["time_read_s"] = round(t_read, 4)
         results.append(r)
         say(f"[{r['engine']:5s}] matches={r['matches']}  "
@@ -549,12 +592,11 @@ def main(argv=None):
             if args.devices != world:
                 sys.exit(f"--devices {args.devices} != the torchrun world "
                          f"size {world}")
-            inputs = load_inputs(args)
-            check_distributed(args, inputs[1])
-            code = run(args, make_mesh(world, device=args.device), inputs)
+            check_distributed(args)
+            code = run(args, make_mesh(world, device=args.device))
             dist.destroy_process_group()
         else:
-            check_distributed(args, load_inputs(args)[1])
+            check_distributed(args)
             code = spawn_ranks(args, argv)
     else:
         code = run(args)

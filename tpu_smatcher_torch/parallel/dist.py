@@ -10,13 +10,14 @@ main.c:654-661).  Here, one process per rank:
     multihost.load_corpus_shards from a file);
   - each rank takes its right neighbour's first m-1 bytes through one
     all-reduce of a (k, m-1) buffer in which every rank fills its own row
-    (exchange_halo); the last rank's halo is the out-of-alphabet pad;
+    (_halo); the last rank's halo is the out-of-alphabet pad;
   - tables are built on every rank (the reference's per-rank preproc);
   - every rank scans its shard + halo with any engine's core, and the
-    (count, overflow) pair is one all-reduce.  The count scans the shard
-    and the seam (its last m-1 bytes + the halo) apart: one core call
-    over the shard in place and one over 2(m-1) bytes, where appending
-    the halo would copy the whole shard (eager torch fuses nothing).
+    (count, overflow) pair is one all-reduce.  Every scan (the count,
+    the ladder, the positions) reads the shard and the seam (its last m-1
+    bytes + the halo) apart: core calls over the shard in place and one
+    over 2(m-1) bytes, where appending the halo would copy the whole
+    shard (eager torch fuses nothing).
 
 Every collective is an all-reduce, so one code path serves NCCL between
 cards and gloo on the CPU or on one shared card (gloo takes CUDA tensors
@@ -57,10 +58,13 @@ def _all_reduce(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
-def _pair(res):
-    """A core's count, or (count, overflow), as a (2,) int64 tensor."""
-    c, o = res if isinstance(res, tuple) else (res, torch.zeros_like(res))
-    return torch.stack([c.to(torch.int64), o.to(torch.int64)])
+def _add_pair(co: torch.Tensor, res) -> None:
+    """Adds a core's count, or (count, overflow), into the (2,) int64
+    pair co, in place."""
+    c, o = res if isinstance(res, tuple) else (res, None)
+    co[0].add_(c)
+    if o is not None:
+        co[1].add_(o)
 
 
 class _DistFuture:
@@ -97,14 +101,15 @@ class _DistFuture:
 def _halo(local: torch.Tensor, mesh: Mesh, *, halo: int,
           sigma: int) -> torch.Tensor:
     """The right neighbour's first `halo` bytes: one all-reduce of a
-    (k, halo) int32 buffer in which each rank fills its own row; rank i
-    takes row (i+1) mod k.  The last rank's becomes the out-of-alphabet
-    pad sigma; for sigma = 256 it keeps the cyclic row (shard 0's head),
-    which its valid starts never read."""
+    (k, halo) uint8 buffer in which each rank fills its own row (the sum
+    of one nonzero row cannot wrap); rank i takes row (i+1) mod k.  The
+    last rank's becomes the out-of-alphabet pad sigma; for sigma = 256 it
+    keeps the cyclic row (shard 0's head), which its valid starts never
+    read."""
     k, r = mesh.size, mesh.rank
-    buf = torch.zeros((k, halo), dtype=torch.int32, device=local.device)
+    buf = torch.zeros((k, halo), dtype=torch.uint8, device=local.device)
     buf[r] = local[:halo]
-    recv = _all_reduce(buf)[(r + 1) % k].to(torch.uint8)
+    recv = _all_reduce(buf)[(r + 1) % k]
     if sigma < 256 and r == k - 1:
         recv.fill_(sigma)
     return recv
@@ -113,7 +118,8 @@ def _halo(local: torch.Tensor, mesh: Mesh, *, halo: int,
 def exchange_halo(local: torch.Tensor, mesh: Mesh, *, halo: int,
                   sigma: int) -> torch.Tensor:
     """This shard with its right neighbour's first `halo` bytes appended
-    (_halo's all-reduce)."""
+    (_halo's all-reduce), as one tensor: the JAX package's exchange_halo.
+    The scans never build it (_Sharded reads the shard in place)."""
     if halo <= 0:
         return local
     return torch.cat([local, _halo(local, mesh, halo=halo, sigma=sigma)])
@@ -123,7 +129,14 @@ class _Sharded:
     """A scan's input on this rank: the shard, its halo, the shard length,
     the shard's global offset and `stop`, the length of shard + halo that
     holds the windows to count (cut to the valid starts for sigma =
-    256)."""
+    256).
+
+    Shard + halo is never one tensor: a piece of starts that ends before
+    the seam (the last m-1 starts, whose windows reach the halo) is a view
+    of the shard, and a piece of the seam joins its shard bytes and the
+    halo, a copy of at most 2(m-1) bytes.  spans() splits the starts
+    there, and the ladder and the positions split pieces only within a
+    span."""
 
     __slots__ = ("shard", "recv", "per", "base", "stop")
 
@@ -131,36 +144,55 @@ class _Sharded:
         self.shard, self.recv = shard, recv
         self.per, self.base, self.stop = per, base, stop
 
-    def ext(self) -> torch.Tensor:
-        """shard + halo as one tensor, cut at `stop` (a copy of the
-        shard: the ladder and positions cut it into pieces)."""
-        return torch.cat([self.shard, self.recv])[:self.stop]
+    @property
+    def halo(self) -> int:
+        return int(self.recv.shape[0])
+
+    def spans(self) -> list:
+        """The starts [0, per) as (offset, starts) pieces: the shard's own
+        windows, then the seam."""
+        cut = self.per - self.halo
+        return [(o, c) for o, c in ((0, cut), (cut, self.halo)) if c > 0]
+
+    def piece(self, off: int, owned: int) -> torch.Tensor:
+        """The bytes of starts [off, off + owned), cut at `stop`."""
+        hi = min(off + owned + self.halo, self.stop)
+        if hi <= self.per:
+            return self.shard[off:hi]
+        return torch.cat([self.shard[off:], self.recv[:hi - self.per]])
+
+    def count(self, fn, off: int, owned: int, co=None) -> torch.Tensor:
+        """fn's (count, overflow) over starts [off, off + owned) added
+        into co (by default a new (2,) int64 pair at zero); returns co."""
+        if co is None:
+            co = torch.zeros(2, dtype=torch.int64, device=self.shard.device)
+        piece = self.piece(off, owned)
+        if int(piece.shape[0]) > self.halo:            # holds a start
+            _add_pair(co, fn(piece))
+        return co
 
     def scan(self, core_fn, seam_fn=None) -> torch.Tensor:
-        """(count, overflow) over the starts of ext(), as a (2,) int64
-        tensor, without copying the shard: core_fn over the shard alone
-        counts the starts whose window lies in it, seam_fn (core_fn unless
-        given) over the seam (its last m-1 bytes and the halo) the m-1
-        starts after them."""
-        halo = int(self.recv.shape[0])
-        co = _pair(core_fn(self.shard[:min(self.stop, self.per)]))
-        if self.stop > self.per:
-            seam = torch.cat([self.shard[self.per - halo:],
-                              self.recv[:self.stop - self.per]])
-            co = co + _pair((seam_fn or core_fn)(seam))
+        """(count, overflow) over every start, as a (2,) int64 tensor:
+        core_fn over the shard's own windows, seam_fn (core_fn unless
+        given) over the seam's."""
+        co = None
+        for off, owned in self.spans():
+            own = off < self.per - self.halo
+            co = self.count(core_fn if own else (seam_fn or core_fn), off,
+                            owned, co)
         return co
 
 
-def _shard_ext(text, mesh: Mesh, *, m: int, sigma: int, n, axis: str):
+def _shard_ext(text, mesh: Mesh, *, m: int, sigma: int, n):
     """The _Sharded input of a scan.  A numpy array is the whole text,
     which every rank holds (mesh.shard_text cuts this rank's shard); a
     tensor is this rank's shard already (shard_text, load_corpus_shards).
     `n`, the corpus length, defaults to the whole text's; it matters for
     sigma = 256 only, where the 0-pad is in the alphabet."""
     from tpu_smatcher_torch.ops.fast import device_text
-    k = mesh.shape[axis]
+    k = mesh.size
     if isinstance(text, np.ndarray):
-        shard, n_text = shard_text(text, mesh, sigma=sigma, axis=axis)
+        shard, n_text = shard_text(text, mesh, sigma=sigma)
         # an explicit n= wins: the array may itself carry host-side
         # padding (a pre-padded byte-alphabet corpus)
         n = n_text if n is None else int(n)
@@ -197,12 +229,12 @@ class DistributedCounter:
         distributed OVERFLOW LADDER (a dense per-shard pass, then
         budget-sized pieces; every engine counts the same windows, so the
         fast tables are a valid fallback for any core).  Without it a shard
-        overflow raises (the portable cores never overflow)."""
+        overflow raises (the portable cores never overflow).  `axis` is
+        ignored (mesh.DATA_AXIS)."""
         self.mesh = mesh
         self._core_fn = core_fn
         self.m = m
         self.sigma = sigma
-        self.axis = axis
         self.fast = fast
         #: the seam's 2(m-1) bytes go through a FastScanner over the
         #: ladder's tables with a small cap: the fingerprint tier's
@@ -224,8 +256,7 @@ class DistributedCounter:
     def count_async(self, text, *, n: int | None = None) -> _DistFuture:
         """Scan this rank's shard and enqueue the all-reduce; the summed
         (count, overflow) pair stays on the device until result()."""
-        sh = _shard_ext(text, self.mesh, m=self.m, sigma=self.sigma, n=n,
-                        axis=self.axis)
+        sh = _shard_ext(text, self.mesh, m=self.m, sigma=self.sigma, n=n)
         co = _all_reduce(sh.scan(self._core_fn, self._seam_fn))
         retry = (None if self.fast is None
                  else lambda: self._retry_total(sh))
@@ -259,17 +290,14 @@ class DistributedCounter:
         (count, overflow) is all-reduced, so every rank splits the same
         pieces."""
         dense = self.fast._dense_core()
-        ext = sh.ext()
-        halo = self.m - 1
         min_chunk = max(self.fast.cap // 4, 1)
-        work = [(0, sh.per)]
+        work = sh.spans()[::-1]
         inflight, total = [], 0
         while work or inflight:
             while work and len(inflight) < depth:
                 off, owned = work.pop()
-                piece = ext[off:off + owned + halo]
                 inflight.append((off, owned,
-                                 _all_reduce(_pair(dense(piece)))))
+                                 _all_reduce(sh.count(dense, off, owned))))
             off, owned, co = inflight.pop(0)
             c, o = co.tolist()
             if o:
@@ -277,7 +305,7 @@ class DistributedCounter:
                     raise AssertionError(
                         "distributed count piece overflowed below the "
                         "guaranteed size — this is a bug")
-                split = max(min_chunk, owned // 2)
+                split = max(min_chunk, -(-owned // 2))
                 for s in range(off, off + owned, split):
                     work.append((s, min(split, off + owned - s)))
             else:
@@ -297,24 +325,22 @@ class DistributedPositions:
     fills its row with its positions + 1 and its overflow flag: every rank
     learns every position, and every rank splits a piece that overflowed on
     some rank (pieces of <= cap/2 starts cannot).  Every rank returns the
-    same sorted int64 array."""
+    same sorted int64 array.  `axis` is ignored (mesh.DATA_AXIS)."""
 
     def __init__(self, fast, mesh: Mesh, *, axis: str = DATA_AXIS):
         self.fast = fast
         self.mesh = mesh
         self.m = fast.m
         self.sigma = fast.sigma
-        self.axis = axis
-        self.k = mesh.shape[axis]
+        self.k = mesh.size
 
-    def _piece(self, sh: _Sharded, ext, off: int,
-               owned: int) -> torch.Tensor:
-        """The all-reduced (k, cap + 1) int64 buffer of one piece of
-        ext (shard + halo)."""
+    def _piece(self, sh: _Sharded, off: int, owned: int) -> torch.Tensor:
+        """The all-reduced (k, cap + 1) int64 buffer of the piece of
+        starts [off, off + owned)."""
         fast, cap = self.fast, self.fast.cap
         buf = torch.zeros((self.k, cap + 1), dtype=torch.int64,
-                          device=ext.device)
-        piece = ext[off:off + owned + self.m - 1]
+                          device=sh.shard.device)
+        piece = sh.piece(off, owned)
         if int(piece.shape[0]) >= self.m:
             idxs, o = fast._positions_piece(piece)
             buf[self.mesh.rank, :cap] = torch.where(
@@ -326,24 +352,20 @@ class DistributedPositions:
                   depth: int = 4, n: int | None = None) -> np.ndarray:
         """text as DistributedCounter.count takes it; chunk= presizes the
         pieces (in starts of each shard) where the density is known."""
-        sh = _shard_ext(text, self.mesh, m=self.m, sigma=self.sigma, n=n,
-                        axis=self.axis)
-        ext = sh.ext()
+        sh = _shard_ext(text, self.mesh, m=self.m, sigma=self.sigma, n=n)
         cap = self.fast.cap
         min_chunk = max(cap // 2, 1)
-        if chunk is None:
-            work = [(0, sh.per)]
-        else:
+        work = sh.spans()
+        if chunk is not None:
             chunk = max(int(chunk), min_chunk)
-            work = [(s, min(chunk, sh.per - s))
-                    for s in range(0, sh.per, chunk)]
+            work = [(s, min(chunk, lo + c - s)) for lo, c in work
+                    for s in range(lo, lo + c, chunk)]
         work.reverse()
         inflight, out = [], []
         while work or inflight:
             while work and len(inflight) < depth:
                 off, owned = work.pop()
-                inflight.append((off, owned,
-                                 self._piece(sh, ext, off, owned)))
+                inflight.append((off, owned, self._piece(sh, off, owned)))
             off, owned, buf = inflight.pop(0)
             b = buf.cpu().numpy()
             if b[:, cap].any():
@@ -351,7 +373,7 @@ class DistributedPositions:
                     raise AssertionError(
                         "distributed positions piece overflowed below the "
                         "guaranteed size — this is a bug")
-                split = max(min_chunk, owned // 2)
+                split = max(min_chunk, -(-owned // 2))
                 for s in range(off, off + owned, split):
                     work.append((s, min(split, off + owned - s)))
                 continue

@@ -22,6 +22,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+#: the JAX package's mesh axis name.  The port's layout is the 1-D process
+#: group: the `axis` arguments below exist for the JAX package's
+#: signatures and are ignored
 DATA_AXIS = "data"
 
 #: the process group's timeout: a rank that dies or hangs makes the others
@@ -38,12 +41,6 @@ class Mesh:
     size: int
     device: torch.device
     backend: str
-    axis: str = DATA_AXIS
-
-    @property
-    def shape(self) -> dict:
-        """{axis: world size}, as a JAX mesh's shape reads."""
-        return {self.axis: self.size}
 
 
 def pick_backend(device, local_ranks: int) -> str:
@@ -78,7 +75,8 @@ def make_mesh(n_devices: int | None = None, axis: str = DATA_AXIS, *,
     card, gloo on the CPU) over an in-memory store; collectives then run at
     world size 1 like at any other.  n_devices, when given, must equal the
     world size: ranks are processes, started by torchrun, by
-    multihost.init_distributed or by the CLI's --devices."""
+    multihost.init_distributed or by the CLI's --devices.  `axis` is
+    ignored (DATA_AXIS)."""
     if not dist.is_initialized():
         if n_devices not in (None, 1):
             raise ValueError(
@@ -100,7 +98,7 @@ def make_mesh(n_devices: int | None = None, axis: str = DATA_AXIS, *,
         raise ValueError("an NCCL group needs device='cuda'")
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-    return Mesh(rank, k, dev, backend, axis)
+    return Mesh(rank, k, dev, backend)
 
 
 def shard_text(text, mesh: Mesh, *, sigma: int, axis: str = DATA_AXIS):
@@ -112,8 +110,8 @@ def shard_text(text, mesh: Mesh, *, sigma: int, axis: str = DATA_AXIS):
     out-of-alphabet byte exists: the pad is 0, and the distributed layer
     counts only the starts before n - m + 1 (parallel/dist.py).
 
-    Returns (shard, original length)."""
-    k = mesh.shape[axis]
+    Returns (shard, original length).  `axis` is ignored (DATA_AXIS)."""
+    k = mesh.size
     if isinstance(text, torch.Tensor):
         src = text
     else:

@@ -75,13 +75,14 @@ def load_corpus_shards(path: str, mesh: Mesh, *, sigma: int,
     right-padded with the out-of-alphabet symbol sigma (pad windows never
     match); for the byte alphabet (sigma = 256) the pad is 0, and the
     returned corpus length must go to DistributedCounter.count(n=...) so
-    that only the valid starts count.  Returns (shard, corpus length)."""
+    that only the valid starts count.  Returns (shard, corpus length).
+    `axis` is ignored (mesh.DATA_AXIS)."""
     file_n = os.path.getsize(path)
     if n is None:
         n = file_n
     if n > file_n:
         raise ValueError(f"requested n={n} > file size {file_n}")
-    per = -(-max(n, 1) // mesh.shape[axis])
+    per = -(-max(n, 1) // mesh.size)
     start = mesh.rank * per
     stop = min(n, start + per)
     block = np.full(per, sigma if sigma < 256 else 0, dtype=np.uint8)
