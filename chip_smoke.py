@@ -72,6 +72,17 @@
    - the command line: --algo all --verify on the 4 MiB prefix, --stream
      --positions (m=32) on the corpus, and `python -m
      tpu_smatcher_torch.cli ... --devices 2`;
+   - conformance: the reference TPU smoke's cells the phases above lack
+     (protein m=32 p=400 over 4 MiB through count, positions, the five
+     engines, a checkpoint, count_file / positions_file, matches and
+     scan_many; m=256 and m=1024; the full fingerprint collision, exact
+     over 8 scans and then retrying no more; the sigma=20 p=4000
+     match-dense set), each against datagen;
+   - the tools (tpu_smatcher_torch/tools): the soak's 60 trials (12 on
+     four gloo ranks sharing cuda:0), the sweep at the reference's full
+     corpus sizes (12 shapes x 6 engines, equal across engines and to
+     datagen on each 1 MiB prefix, q x count below 2^31) and the ladder
+     at its defaults, every rung at parity;
 5. times each path (median per-scan over 5 reps, CUDA events) on the
    kernels and on the plain versions (the mixed scan beside the sum of its
    groups' make_fast tiers; the world-1 distributed count beside
@@ -83,7 +94,9 @@
    at dense32's 7 and saturated's 32 stages, exact_mask over the whole
    corpus and over one positions piece, the guarded count over the padded
    one), and the positions phase
-   is profiled per path.  The launches are also weighted by the size they
+   is profiled per path, as are the sweep's twelve shapes through
+   make_fast (pipelined and single scans; the host's time per scan on the
+   smallest shape).  The launches are also weighted by the size they
    ran at, and the filter launches at addresses that are not 16-byte
    aligned (views) counted; each timed stage chain prints the fraction of
    starts passing each set of its stages.  A bound charges the work the
@@ -133,6 +146,18 @@ W2_ENGINES = (("ac", 8), ("wm", 8), ("sog8", 8), ("ac", 32), ("wm", 32),
               ("sog32", 32))
 W2_OFFSETS = range(-7, 1)
 W2_TIMEOUT_S = 600
+#: the tools' phases: the kernels each must launch (others may, as the
+#: router decides), and the sweep's timing window, seconds (the tool's
+#: default is 0.35)
+CONFORMANCE_KERNELS = ("cascade", "filter_mask", "filter_slots",
+                       "words_view", "stages", "stages_flat")
+SOAK_KERNELS = ("exact_count", "exact_mask", "filter_mask", "filter_slots",
+                "words_view", "stages", "stages_flat")
+SWEEP_KERNELS = ("exact_count", "words_view", "stages", "stages_flat")
+LADDER_KERNELS = ("exact_count", "stages", "stages_flat")
+SWEEP_WINDOW_S = 0.1
+#: the sweep shapes' timings: scans per pipelined repeat
+SWEEP_PIPELINE = 16
 #: the sigma = 256 cases: a 64 MiB byte text, not a multiple of 8
 S256_N = 64 * MiB - 3
 #: the ladder's step-2 cell: 'A'*16 over an all-'A' text at cap 1024
@@ -1843,6 +1868,167 @@ def cli_path(text, codes, gates, fpos, total):
 
 
 # ---------------------------------------------------------------------------
+# the experiment and conformance tools (tpu_smatcher_torch/tools)
+# ---------------------------------------------------------------------------
+
+def conformance_path(total):
+    """The cells of the reference's TPU smoke (scripts/tpu_smoke.py) that
+    the phases above do not hold, at its sizes, each against datagen:
+    protein m=32 p=400 over 4 MiB (count, positions, the five engines, a
+    table checkpoint, count_file / positions_file, matches attribution,
+    scan_many); m=256 and m=1024 through make_fast; the full fingerprint
+    collision set (8 exact scans, then fallback_scans no longer growing
+    over 3 more); the sigma=20 p=4000 match-dense set (2 exact scans, no
+    stage bumps once the dense pass is on)."""
+    import tempfile
+    import numpy as np
+    import torch
+    from tpu_smatcher_torch import make_engine, make_fast
+    from tpu_smatcher_torch.core import datagen
+    from tpu_smatcher_torch.core.alphabet import Alphabet
+    from tpu_smatcher_torch.core.checkpoint import load_tables, save_tables
+    from tpu_smatcher_torch.engines import (build_tables,
+                                            make_engine_from_tables)
+    from tpu_smatcher_torch.tools.find_fp_collision import collision_case
+
+    t0 = time.perf_counter()
+    checks = []
+
+    def check(name, got, want):
+        checks.append(name)
+        assert got == want, f"conformance {name}: {got} != {want}"
+
+    reset_launches()
+    ab = Alphabet.protein()
+    m, n = 32, 4 * MiB
+    text = datagen.generate_text(n, ab, seed=11)
+    pats = datagen.generate_patterns(text, 400, m, ab, frac_present=0.6,
+                                     seed=12)
+    truth = datagen.count_matches(text, pats)
+    want_pos = np.nonzero(datagen.match_starts(text, pats))[0]
+    tdev = torch.from_numpy(text).cuda()
+    fast = make_fast(pats)
+    check("fast count", fast.count(tdev), truth)
+    check("fast positions", int(fast.positions(tdev).sum()),
+          int(want_pos.sum()))
+    for name in ("ac", "sh", "sbom", "wm", "sog32"):
+        check(f"{name} count", make_engine(name, pats).count(tdev), truth)
+    with tempfile.TemporaryDirectory() as td:
+        tp = os.path.join(td, "t.npz")
+        save_tables(tp, build_tables("fast", pats))
+        eng = make_engine_from_tables("fast", load_tables(tp, device="cuda"),
+                                      device="cuda")
+        check("checkpoint round trip", eng.count(tdev), truth)
+        cp = os.path.join(td, "c.bin")
+        text.tofile(cp)
+        check("count_file", fast.count_file(cp, chunk=MiB), truth)
+        check("positions_file", int(fast.positions_file(cp, chunk=MiB)
+                                    .sum()), int(want_pos.sum()))
+    mpos, mids = fast.matches(tdev)
+    win = text[np.asarray(mpos)[:, None] + np.arange(m)]
+    check("matches attribution",
+          bool((win == pats.codes[np.asarray(mids)]).all())
+          and int(mpos.size), truth)
+    check("scan_many", fast.scan_many([tdev, tdev[:2 * MiB], tdev]),
+          [truth, datagen.count_matches(text[:2 * MiB], pats), truth])
+    log(f"  protein m=32 p=400 (4 MiB): count {truth}, {len(want_pos)} "
+        f"positions, five engines, checkpoint, files, matches, scan_many")
+
+    text = datagen.generate_text(4 * MiB, ab, seed=13)
+    tdev = torch.from_numpy(text).cuda()
+    for m_long, p_long, seed in ((256, 50, 14), (1024, 20, 15)):
+        lp = datagen.generate_patterns(text, p_long, m_long, ab,
+                                       frac_present=0.6, seed=seed)
+        c = make_fast(lp).count(tdev)
+        check(f"fast count m={m_long}", c, datagen.count_matches(text, lp))
+        log(f"  m={m_long} p={p_long} (4 MiB): {c}")
+
+    # windows x and x + FP_COLLISION_D share the three base fingerprints,
+    # so x passes every derived stage of pattern x + d: planted every 96
+    # bytes they overflow the per-block slots until the scanner adapts
+    atext, apats = collision_case(2 * MiB)
+    atruth = datagen.count_matches(atext, apats)
+    afast = make_fast(apats)
+    adev = torch.from_numpy(atext).cuda()
+    check("fp collision, 8 scans", [afast.count(adev) for _ in range(8)],
+          [atruth] * 8)
+    mid = afast.fallback_scans
+    for _ in range(3):
+        afast.count(adev)
+    check("fp collision converged", afast.fallback_scans, mid)
+    log(f"  fp collision (2 MiB): {atruth} x 8, fallback_scans {mid}, "
+        f"_k_extra {afast._k_extra}, _match_dense {afast._match_dense}")
+
+    ab20 = Alphabet.of_size(20)
+    dtext = datagen.generate_text(2 * MiB, ab20, seed=21)
+    dpats = datagen.generate_patterns(dtext, 4000, 8, ab20,
+                                      frac_present=0.9, seed=22)
+    dtruth = datagen.count_matches(dtext, dpats)
+    dfast = make_fast(dpats)
+    ddev = torch.from_numpy(dtext).cuda()
+    check("match-dense, 2 scans", (dfast.count(ddev), dfast.count(ddev)),
+          (dtruth, dtruth))
+    if dfast._match_dense:
+        check("match-dense switch, no stage bumps", dfast._k_extra, 0)
+    log(f"  match-dense sigma=20 p=4000 (2 MiB): {dtruth} x 2, "
+        f"_match_dense {dfast._match_dense}, _k_extra {dfast._k_extra}")
+    read_launches("conformance", CONFORMANCE_KERNELS, total)
+    log(f"conformance phase: {len(checks)} checks held, "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def soak_path(total):
+    """tools.soak on the card: the 60 trials, their distributed ones in
+    one group of four gloo ranks sharing cuda:0 (their launches added)."""
+    from tpu_smatcher_torch.tools import soak
+    reset_launches()
+    res = soak.soak(device="cuda", log=lambda s: log(f"  {s}"))
+    read_launches("soak", SOAK_KERNELS, total)
+    assert not res["failures"], f"soak: {res['failures']}"
+    assert len(res["ranks"]) == soak.DIST_WORLD and res["dist_trials"]
+    for r, rank in enumerate(res["ranks"]):
+        assert rank["backend"] == "gloo" and rank["device"] == "cuda:0", \
+            f"soak rank {r}: {rank['backend']} {rank['device']}"
+        assert not rank["imports_jax"], rank["imports_jax"]
+        for k, v in rank["launches"].items():
+            total[k] += v
+    log(f"soak phase: {res['trials']}/{res['trials']} trials held, "
+        f"{len(res['dist_trials'])} on {soak.DIST_WORLD} ranks (launches "
+        f"per rank {[r['launches'] for r in res['ranks']]}), "
+        f"{res['seconds']:.1f} s")
+
+
+def sweep_path(total):
+    """tools.sweep at the reference's full corpus sizes: 12 (corpus, p)
+    shapes x six engines, counts equal across engines and to datagen on
+    each 1 MiB prefix, every repeat's sum q x count below 2^31."""
+    from tpu_smatcher_torch.tools import sweep
+    reset_launches()
+    res = sweep.sweep(device="cuda", window=SWEEP_WINDOW_S,
+                      log=lambda s: log(f"  {s}"))
+    read_launches("sweep", SWEEP_KERNELS, total)
+    assert not res["failures"], f"sweep: {res['failures']}"
+    lines = [r for r in res["records"] if "matches" in r]
+    assert len(lines) == len(sweep.CORPORA) * len(sweep.P_SIZES) * len(
+        sweep.DEFAULT_ENGINES), f"sweep: {len(lines)} lines"
+    assert all(r["queue"] * r["matches"] <= sweep.INT32_MAX for r in lines)
+    log(f"sweep phase: {len(lines)} lines, {res['seconds']:.1f} s")
+
+
+def ladder_path(total):
+    """tools.ladder at its defaults (64 MiB DNA, m=8, p=1000): every rung
+    of the five engines and make_fast holds parity with datagen."""
+    from tpu_smatcher_torch.tools import ladder
+    t0 = time.perf_counter()
+    reset_launches()
+    rows = ladder.ladder(device="cuda", log=lambda s: log(f"  {s}"))
+    read_launches("ladder", LADDER_KERNELS, total)
+    assert all(r["parity"] for r in rows) and len(rows) == 5 * 5 + 1
+    log(f"ladder phase: {len(rows)} rungs held, "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
 # timings
 # ---------------------------------------------------------------------------
 
@@ -2261,6 +2447,42 @@ def distributed_timings(card, tdev, tiers, tier_ms, w2):
                    lambda: tiers["exact"].fast.count_async(tdev).result())
 
 
+def sweep_timings(card):
+    """The sweep's twelve shapes through make_fast at full size: the
+    pipelined per-scan time (CUDA events over SWEEP_PIPELINE scans
+    enqueued back to back, count_repeat_async) beside one synchronous
+    scan's, a profile of the pipelined scans, and where the host's time
+    goes on the smallest fingerprint-tier shape, whose scans the host's
+    enqueue bounds."""
+    import torch
+    from tpu_smatcher_torch import make_fast
+    from tpu_smatcher_torch.core import datagen
+    from tpu_smatcher_torch.core.alphabet import Alphabet
+    from tpu_smatcher_torch.tools import sweep
+    for name, n, sigma in sweep.CORPORA:
+        ab = Alphabet.of_size(sigma)
+        text = datagen.generate_text(n, ab, seed=1)
+        tdev = torch.from_numpy(text).cuda()
+        for p in sweep.P_SIZES:
+            pats = datagen.generate_patterns(text, p, 8, ab,
+                                             frac_present=0.5, seed=2)
+            eng = make_fast(pats)
+            q = min(SWEEP_PIPELINE, sweep.INT32_MAX // max(eng.count(tdev),
+                                                          1))
+            one = cuda_ms(lambda: eng.count_async(tdev).result())
+            rep = cuda_ms(lambda: eng.count_repeat_async(tdev, q).result())
+            label = f"sweep {name} p={p} fast ({sweep.route_of(eng, n)})"
+            log(f"[{card}] {label}: {rep / q:.4f} ms/scan over {q} "
+                f"pipelined scans, {one:.4f} ms for one scan read back")
+            profile(card, f"{label}, one call = {q} pipelined scans",
+                    lambda: eng.count_repeat_async(tdev, q).result(),
+                    reps=1)
+            if name == "world192":
+                host_breakdown(card, label,
+                               lambda: eng.count_async(tdev).result())
+        del tdev
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2303,11 +2525,20 @@ def main() -> int:
         w2 = world2_path(text, tdev, codes, total)
         t6 = time.perf_counter()
         cli_path(text, codes, gates, fpos, total)
+        t7 = time.perf_counter()
+        conformance_path(total)
+        t8 = time.perf_counter()
+        soak_path(total)
+        t9 = time.perf_counter()
+        sweep_path(total)
+        t10 = time.perf_counter()
+        ladder_path(total)
     log(f"main paths done at {time.perf_counter() - t0:.1f} s (positions "
         f"phase {t2 - t1:.1f} s, engines phase {t3 - t2:.1f} s, mixed "
         f"phase {t4 - t3:.1f} s, distributed world 1 {t5 - t4:.1f} s, "
-        f"world 2 {t6 - t5:.1f} s, cli {time.perf_counter() - t6:.1f} s); "
-        f"launches {total}")
+        f"world 2 {t6 - t5:.1f} s, cli {t7 - t6:.1f} s, conformance "
+        f"{t8 - t7:.1f} s, soak {t9 - t8:.1f} s, sweep {t10 - t9:.1f} s, "
+        f"ladder {time.perf_counter() - t10:.1f} s); launches {total}")
     per_kernel, tier_ms = timings(card, ck, tdev, engines, slot_eng, dense,
                                   sat)
     t1 = time.perf_counter()
@@ -2318,6 +2549,9 @@ def main() -> int:
     per_kernel.update(engine_kernels)
     mixed_timings(card, tdev, mixed, tier_ms)
     distributed_timings(card, tdev, tiers, tier_ms, w2)
+    t3 = time.perf_counter()
+    sweep_timings(card)
+    log(f"sweep timings {time.perf_counter() - t3:.1f} s")
     log(f"timings done at {time.perf_counter() - t0:.1f} s (positions "
         f"phase {t2 - t1:.1f} s, engines phase "
         f"{time.perf_counter() - t2:.1f} s)")

@@ -819,3 +819,52 @@ def test_cli_on_the_card(cuda, capsys):
     res = json.loads(out.strip().splitlines()[-1])
     assert len(res) == 6
     assert all(r["matches"] == r["ground_truth"] for r in res)
+
+
+# ---------------------------------------------------------------------------
+# the tools (tpu_smatcher_torch/tools) on the card, at small sizes
+# ---------------------------------------------------------------------------
+
+def test_soak_first_7_trials_on_the_card(cuda):
+    """The soak's first 7 trials (the long-pattern trial 6 among them)
+    through the kernels and the plain versions, and trials 0 and 5 on four
+    gloo ranks sharing the card."""
+    from tpu_smatcher_torch.tools import soak
+    res = soak.soak(7, device="cuda", log=lambda s: None)
+    assert res["failures"] == []
+    assert res["dist_trials"] == [0, 5]
+    assert [(r["backend"], r["device"]) for r in res["ranks"]] == \
+        [("gloo", "cuda:0")] * 4
+
+
+def test_sweep_small_on_the_card(cuda, tmp_path):
+    """The six corpus shapes cut to 1 MiB at p = 1000: every engine agrees
+    with datagen, lines timed by CUDA events, below the int32 wrap."""
+    from tpu_smatcher_torch.tools import sweep
+    corpora = [(name, min(n, 1 << 20), sigma)
+               for name, n, sigma in sweep.CORPORA]
+    res = sweep.sweep(corpora, [1000], device="cuda", reps=1, window=0.02,
+                      out=str(tmp_path / "s.jsonl"), log=lambda s: None)
+    assert res["failures"] == []
+    lines = [r for r in res["records"] if "matches" in r]
+    assert len(lines) == len(sweep.CORPORA) * len(sweep.DEFAULT_ENGINES)
+    for r in lines:
+        assert r["backend"] == "cuda" and r["method"] == "cuda_events"
+        assert r["card"] and r["matches"] == r["gate"]
+        assert r["queue"] * r["matches"] < 2 ** 31
+
+
+def test_fp_collision_cell_on_the_card(cuda):
+    """The full fingerprint collision: 8 exact scans, then no further
+    retries over 3 more (the scanner converged)."""
+    from tpu_smatcher_torch.tools.find_fp_collision import collision_case
+    text, pats = collision_case()
+    truth = datagen.count_matches(text, pats)
+    eng = make_fast(pats)
+    t = torch.from_numpy(text).cuda()
+    assert [eng.count(t) for _ in range(8)] == [truth] * 8
+    mid = eng.fallback_scans
+    assert mid >= 1
+    for _ in range(3):
+        assert eng.count(t) == truth
+    assert eng.fallback_scans == mid

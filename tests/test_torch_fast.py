@@ -152,8 +152,9 @@ def test_port_imports_no_jax():
     """A fresh interpreter that imports the port, makes data with its own
     generator, counts and enumerates positions and pattern ids on the CPU,
     and counts through the seven named engines, with and without their
-    fast path (attributing without it), holds no jax and no tpu_smatcher*
-    module."""
+    fast path (attributing without it), then imports the oracles, the
+    numpy references and every tool and runs the soak's first trial, holds
+    no jax and no tpu_smatcher* module."""
     code = (
         "import sys\n"
         "import tpu_smatcher_torch as t\n"
@@ -175,6 +176,15 @@ def test_port_imports_no_jax():
         "        e = t.make_engine(name, ps, device='cpu', fastpath=fastpath)\n"
         "        assert e.count(text) == want, (name, fastpath)\n"
         "    assert e.count_per_pattern(text).sum() == want, name\n"
+        "from tpu_smatcher_torch.oracles import ORACLES\n"
+        "from tpu_smatcher_torch.ops import numpy_ref\n"
+        "from tpu_smatcher_torch.engines import build_tables\n"
+        "from tpu_smatcher_torch.tools import (compare_sweeps,\n"
+        "    find_fp_collision, ladder, soak, sweep)\n"
+        "assert ORACLES['ac'](text, pats.codes, 4) == c\n"
+        "tb = build_tables('sh', pats, device='cpu')['main']\n"
+        "assert numpy_ref.scan_sh_np(text, tb) == c\n"
+        "assert soak.run_trial(soak.trials(1)[0], 'cpu') == []\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
         "       or k == 'tpu_smatcher' or k.startswith('tpu_smatcher.')]\n"
         "assert not bad, bad\n"
