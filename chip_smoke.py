@@ -4,7 +4,9 @@
 
 1. prints the card (nvidia-smi name and power limit) and the torch, CUDA
    and nvcc versions; fails without CUDA;
-2. builds the CUDA kernels from tpu_smatcher_torch/csrc with nvcc;
+2. builds the CUDA kernels from tpu_smatcher_torch/csrc with nvcc, and the
+   native host library (tpu_smatcher_torch/native) with the host's C++
+   compiler;
 3. holds each kernel against its plain torch version on the card, exactly
    (integers: tolerance 0), over texts of up to 16 MiB, short and ragged
    texts, long patterns, narrow and wide stages and match-dense texts; the
@@ -69,9 +71,17 @@
      file and count the three anchors through make_distributed("fast"),
      one engine per stage kind, and pattern 0 of the m=8 set planted
      across the rank boundary at offsets -7 to 0;
-   - the command line: --algo all --verify on the 4 MiB prefix, --stream
-     --positions (m=32) on the corpus, and `python -m
+   - the command line: --algo all --verify on the 4 MiB prefix and on the
+     corpus, --stream --positions (m=32) on the corpus, and `python -m
      tpu_smatcher_torch.cli ... --devices 2`;
+   - native: the port's host library (tpu_smatcher_torch/native) built
+     with the host's C++ compiler; the five table builders at m=32 p=100k
+     natively and with numpy, timed, the tables equal; the full-corpus
+     host truth of the five tiers (count_cpu_native) against make_fast's
+     counts and the BENCH_r05.json anchors, and against the numpy oracle
+     on the 1 MiB prefix, timed; match_enum_native over the corpus against
+     make_fast(m=32 p=10k).matches; load_fasta of the corpus as FASTA with
+     the native encoder and with numpy, the same bytes;
    - conformance: the reference TPU smoke's cells the phases above lack
      (protein m=32 p=400 over 4 MiB through count, positions, the five
      engines, a checkpoint, count_file / positions_file, matches and
@@ -1341,22 +1351,29 @@ def fasta_record(header, raw, width=60):
     return [header + b"\n", body.tobytes(), tail + b"\n" * bool(tail)]
 
 
-def write_mixed_files(tmp, text, pats):
-    """The corpus as FASTA (60-byte lines, two records, through the port's
-    Alphabet.decode), the corpus raw, and bench.py's p=10k sets of every
-    MIXED_M as one FASTA record each, in shuffled order.  Returns the
-    three paths, each set's rows in file order and the shuffle."""
+def write_corpus_fasta(path, text, ab):
+    """The corpus as FASTA: 60-byte lines, two records, through the port's
+    Alphabet.decode."""
     import numpy as np
-    ab = pats[MIXED_M[0]].alphabet
     raw = np.frombuffer(ab.decode(text), np.uint8)
     half = raw.size // 2
-    fasta, bare, pfa = (f"{tmp}/corpus.fa", f"{tmp}/corpus.bin",
-                        f"{tmp}/patterns.fa")
-    with open(fasta, "wb") as f:
+    with open(path, "wb") as f:
         for part in (fasta_record(b">chr1 bench.py corpus, seed 7, first "
                                   b"half", raw[:half])
                      + fasta_record(b">chr2 second half", raw[half:])):
             f.write(part)
+
+
+def write_mixed_files(tmp, text, pats):
+    """The corpus as FASTA (write_corpus_fasta), the corpus raw, and
+    bench.py's p=10k sets of every MIXED_M as one FASTA record each, in
+    shuffled order.  Returns the three paths, each set's rows in file order
+    and the shuffle."""
+    import numpy as np
+    ab = pats[MIXED_M[0]].alphabet
+    fasta, bare, pfa = (f"{tmp}/corpus.fa", f"{tmp}/corpus.bin",
+                        f"{tmp}/patterns.fa")
+    write_corpus_fasta(fasta, text, ab)
     text.tofile(bare)
     rows = [r for m in MIXED_M for r in pats[m].codes]
     order = np.random.default_rng(MIXED_SEED).permutation(len(rows))
@@ -1786,9 +1803,10 @@ def rank_main(argv):
 
 
 def cli_path(text, codes, gates, fpos, total):
-    """The command line: --algo all --verify on the 4 MiB prefix with the
-    m=8 p=10k set (in this process, launches counted; every engine agrees
-    with the ground truth), --stream --positions on the corpus with the
+    """The command line: --algo all --verify on the 4 MiB prefix and on the
+    whole corpus with the m=8 p=10k set (in this process, launches counted;
+    every engine agrees with the ground truth, the native library's count
+    on the corpus), --stream --positions on the corpus with the
     m=32 set (5,000 positions, as FastScanner's), and `python -m
     tpu_smatcher_torch.cli ... --devices 2` (two gloo ranks on cuda:0, the
     same count)."""
@@ -1831,6 +1849,20 @@ def cli_path(text, codes, gates, fpos, total):
                                               "fast", "sog8"]
         assert all(r["matches"] == r["ground_truth"] == gate for r in res)
 
+        # the same on the whole corpus: the ground truth is the native
+        # library's threaded count
+        reset_launches()
+        out, secs = timed(lambda: run_cli(
+            ["--text", corpus] + base[2:] + ["--algo", "all", "--verify"]))
+        read_launches("cli --algo all (256 MiB)", ("exact_count", "stages",
+                                                   "stages_flat"), total)
+        res = json.loads(out.strip().splitlines()[-1])
+        log(f"cli --algo all --verify (256 MiB, {secs:.1f} s): " + " | ".join(
+            line for line in out.strip().splitlines()[:-1]))
+        assert "ALL ENGINES AGREE" in out, "cli 256 MiB: engines disagree"
+        assert all(r["matches"] == r["ground_truth"] == TIERS[0][3]
+                   for r in res), "cli 256 MiB --verify"
+
         reset_launches()
         pos_path = os.path.join(tmp, "pos.npy")
         out = run_cli(["--stream", "--text", corpus, "--patterns", p32,
@@ -1865,6 +1897,100 @@ def cli_path(text, codes, gates, fpos, total):
         assert json.loads(out.strip().splitlines()[-1])[
             "matches"] == gate, "cli --devices 2 count"
     log(f"cli phase {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# the native library on the card's host (tpu_smatcher_torch/native)
+# ---------------------------------------------------------------------------
+
+def native_path(text, tdev, engines, codes, total):
+    """The port's native library, built from the checkout with the host's
+    C++ compiler (main times the build): the five table builders at m=32 p=100k (bench.py's
+    fp32_p100k set) natively and with numpy, timed, the tables equal; the
+    full-corpus host truth (count_cpu_native) of the five tiers against
+    make_fast's counts (driven here with the launch counters at 0) and the
+    BENCH_r05.json anchors, and on the 1 MiB prefix against the numpy
+    oracle, both timed; match_enum_native over the corpus against
+    make_fast(m=32 p=10k).matches; load_fasta of the corpus written as
+    FASTA with the native encoder and with numpy, the same bytes."""
+    import dataclasses
+    import tempfile
+    import numpy as np
+    from tpu_smatcher_torch import automata, native
+    from tpu_smatcher_torch.core import corpus, datagen
+    from tpu_smatcher_torch.core.alphabet import Alphabet
+
+    t0 = time.perf_counter()
+    path = native.build()            # built at start-up (main)
+    assert native.load() is not None, "native library did not load"
+    log(f"native: {os.path.basename(path)} loaded")
+
+    p100k = codes["fp32_p100k"]
+    for name, build, args in (("ac", automata.build_ac, ()),
+                              ("sh", automata.build_sh, ()),
+                              ("sbom", automata.build_sbom, ()),
+                              ("wm", automata.build_wm, ()),
+                              ("sog32", automata.build_sog, (32,))):
+        nat, t_nat = timed(lambda: build(p100k, 4, *args, native=True))
+        ref, t_np = timed(lambda: build(p100k, 4, *args, native=False))
+        for f in dataclasses.fields(nat):
+            x, y = getattr(nat, f.name), getattr(ref, f.name)
+            assert (x.dtype == y.dtype and np.array_equal(x, y)
+                    if isinstance(x, np.ndarray) else x == y), \
+                f"native {name}: {f.name} differs"
+        log(f"native: set-up {name} m=32 p=100k: native {t_nat:.4f} s, "
+            f"numpy {t_np:.4f} s ({t_np / t_nat:.1f}x), tables equal")
+
+    reset_launches()
+    counts = {name: eng.count(tdev) for name, eng in engines}
+    fp = dict(engines)["fp"]
+    mpos, mids = fp.matches(tdev)
+    read_launches("native (make_fast counts and matches)",
+                  ("exact_count", "cascade", "filter_mask", "words_view"),
+                  total)
+    for name, m, p, anchor in TIERS:
+        got, t_full = timed(lambda: native.count_cpu_native(text,
+                                                            codes[name]))
+        log(f"native: host truth {name} (m={m} p={p}) {N_FULL // MiB} MiB: "
+            f"{got} in {t_full:.4f} s ({N_FULL / MiB / t_full:.1f} MiB/s); "
+            f"make_fast {counts[name]}, anchor {anchor}")
+        assert got == counts[name] == anchor, f"native truth {name}"
+        gate_nat, t_gn = timed(
+            lambda: datagen.count_matches(text[:MiB], codes[name],
+                                          prefer_native=True))
+        gate_np, t_gp = timed(
+            lambda: datagen.count_matches(text[:MiB], codes[name]))
+        log(f"native: host truth {name} 1 MiB: native {gate_nat} in "
+            f"{t_gn:.4f} s, numpy {gate_np} in {t_gp:.4f} s "
+            f"({t_gp / t_gn:.0f}x)")
+        assert gate_nat == gate_np, f"native 1 MiB truth {name}"
+
+    (npos, nids), t_enum = timed(lambda: native.match_enum_native(
+        text, codes["fp"]))
+    order = np.argsort(mpos, kind="stable")
+    log(f"native: match_enum fp (m=32 p=10k) {N_FULL // MiB} MiB: "
+        f"{len(npos)} matches in {t_enum:.4f} s; make_fast matches "
+        f"{len(mpos)}")
+    assert np.array_equal(npos, mpos[order]), "native enum positions"
+    assert np.array_equal(nids, mids[order]), "native enum ids"
+
+    ab = Alphabet.dna()
+    with tempfile.TemporaryDirectory() as tmp:
+        fasta = os.path.join(tmp, "corpus.fa")
+        _, t_write = timed(lambda: write_corpus_fasta(fasta, text, ab))
+        c_nat, t_nat = timed(lambda: corpus.load_fasta(fasta, ab))
+        real = native.encode_fasta_native
+        native.encode_fasta_native = lambda *a: None     # the numpy path
+        try:
+            c_np, t_np = timed(lambda: corpus.load_fasta(fasta, ab))
+        finally:
+            native.encode_fasta_native = real
+        size = os.path.getsize(fasta)
+    log(f"native: load_fasta ({size} bytes, written in {t_write:.2f} s): "
+        f"native {t_nat:.4f} s, numpy {t_np:.4f} s ({t_np / t_nat:.1f}x)")
+    assert np.array_equal(c_nat.codes, c_np.codes), "native FASTA bytes"
+    assert np.array_equal(c_nat.codes, text), "load_fasta != the corpus"
+    log(f"native phase {time.perf_counter() - t0:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -2497,6 +2623,10 @@ def main() -> int:
     _build.build(verbose=True)
     _build.load()
     log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
+    from tpu_smatcher_torch import native
+    t1 = time.perf_counter()
+    native.build()
+    log(f"native library built in {time.perf_counter() - t1:.3f} s")
 
     ck = kernel_checks()
     log(f"kernel checks done at {time.perf_counter() - t0:.1f} s")
@@ -2525,6 +2655,8 @@ def main() -> int:
         w2 = world2_path(text, tdev, codes, total)
         t6 = time.perf_counter()
         cli_path(text, codes, gates, fpos, total)
+        t7n = time.perf_counter()
+        native_path(text, tdev, engines, codes, total)
         t7 = time.perf_counter()
         conformance_path(total)
         t8 = time.perf_counter()
@@ -2536,7 +2668,8 @@ def main() -> int:
     log(f"main paths done at {time.perf_counter() - t0:.1f} s (positions "
         f"phase {t2 - t1:.1f} s, engines phase {t3 - t2:.1f} s, mixed "
         f"phase {t4 - t3:.1f} s, distributed world 1 {t5 - t4:.1f} s, "
-        f"world 2 {t6 - t5:.1f} s, cli {t7 - t6:.1f} s, conformance "
+        f"world 2 {t6 - t5:.1f} s, cli {t7n - t6:.1f} s, native "
+        f"{t7 - t7n:.1f} s, conformance "
         f"{t8 - t7:.1f} s, soak {t9 - t8:.1f} s, sweep {t10 - t9:.1f} s, "
         f"ladder {time.perf_counter() - t10:.1f} s); launches {total}")
     per_kernel, tier_ms = timings(card, ck, tdev, engines, slot_eng, dense,

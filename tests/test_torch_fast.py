@@ -153,8 +153,9 @@ def test_port_imports_no_jax():
     generator, counts and enumerates positions and pattern ids on the CPU,
     and counts through the seven named engines, with and without their
     fast path (attributing without it), then imports the oracles, the
-    numpy references and every tool and runs the soak's first trial, holds
-    no jax and no tpu_smatcher* module."""
+    numpy references and every tool and runs the soak's first trial, then
+    counts and enumerates with the native library, holds no jax and no
+    tpu_smatcher* module."""
     code = (
         "import sys\n"
         "import tpu_smatcher_torch as t\n"
@@ -185,6 +186,10 @@ def test_port_imports_no_jax():
         "tb = build_tables('sh', pats, device='cpu')['main']\n"
         "assert numpy_ref.scan_sh_np(text, tb) == c\n"
         "assert soak.run_trial(soak.trials(1)[0], 'cpu') == []\n"
+        "from tpu_smatcher_torch import native\n"
+        "assert native.load() is not None\n"
+        "assert native.count_cpu_native(text, pats.codes) == c\n"
+        "assert len(native.match_enum_native(text, pats.codes)[0]) == c\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
         "       or k == 'tpu_smatcher' or k.startswith('tpu_smatcher.')]\n"
         "assert not bad, bad\n"

@@ -1,7 +1,9 @@
-"""Host-side table builders of the named engines (numpy only): the port's
-copy of tpu_smatcher/automata/{ac,sh,sbom,wu,sog,verify,bm,kmp}.py, without
-the native C builders.  Each dataclass holds numpy arrays, so a table the
-JAX package built converts field for field."""
+"""Host-side table builders of the named engines: the port's copy of
+tpu_smatcher/automata/{ac,sh,sbom,wu,sog,verify,bm,kmp}.py.  build_ac,
+build_sh, build_sbom, build_wm and build_sog build with the native library
+(tpu_smatcher_torch/native) where it loads and with numpy otherwise, to
+equal tables.  Each dataclass holds numpy arrays, so a table the JAX
+package built converts field for field."""
 
 from tpu_smatcher_torch.automata.ac import ACTables, build_ac, multi_step_tables
 from tpu_smatcher_torch.automata.bm import pre_bm_bc

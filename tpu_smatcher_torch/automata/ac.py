@@ -21,6 +21,8 @@ import dataclasses
 
 import numpy as np
 
+from tpu_smatcher_torch import native as nat
+
 
 @dataclasses.dataclass
 class ACTables:
@@ -61,9 +63,22 @@ def _build_trie(patterns: np.ndarray):
     return goto, final, depth
 
 
-def build_ac(patterns: np.ndarray, sigma: int) -> ACTables:
+def build_ac(patterns: np.ndarray, sigma: int,
+             native: bool | str = "auto") -> ACTables:
+    """The tables of `patterns` over an alphabet of `sigma` codes.  native:
+    "auto" builds with the native library where it loads, else with numpy;
+    True requires the library (RuntimeError without it); False is numpy
+    only.  The two paths give equal tables."""
     patterns = np.asarray(patterns, dtype=np.uint8)
     p, m = patterns.shape
+    if native:
+        r = nat.build_ac_native(patterns, sigma)
+        if r is not None:
+            transition, supply, final, delta, depth, n = r
+            return ACTables(transition, supply, final, delta, depth, n,
+                            sigma, m)
+        if native is True:
+            raise RuntimeError("native builder requested but unavailable")
     goto, final_l, depth_l = _build_trie(patterns)
     S = len(goto)
 

@@ -14,6 +14,8 @@ import dataclasses
 
 import numpy as np
 
+from tpu_smatcher_torch import native as nat
+
 
 @dataclasses.dataclass
 class SBOMTables:
@@ -36,9 +38,18 @@ def _finalize(transition, F, n, sigma, m) -> SBOMTables:
     return SBOMTables(transition, final_count, final_ids, n, sigma, m)
 
 
-def build_sbom(patterns: np.ndarray, sigma: int) -> SBOMTables:
+def build_sbom(patterns: np.ndarray, sigma: int,
+               native: bool | str = "auto") -> SBOMTables:
+    """native: as automata.ac.build_ac's."""
     patterns = np.asarray(patterns, dtype=np.uint8)
     p, m = patterns.shape
+    if native:
+        r = nat.build_sbom_native(patterns, sigma)
+        if r is not None:
+            transition, F, n = r
+            return _finalize(transition, F, n, sigma, m)
+        if native is True:
+            raise RuntimeError("native builder requested but unavailable")
     goto = [dict()]
     supply = [None]
     F = [[]]

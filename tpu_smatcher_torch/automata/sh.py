@@ -12,6 +12,7 @@ import dataclasses
 
 import numpy as np
 
+from tpu_smatcher_torch import native as nat
 from tpu_smatcher_torch.automata.bm import pre_bm_bc
 
 
@@ -25,9 +26,18 @@ class SHTables:
     m: int
 
 
-def build_sh(patterns: np.ndarray, sigma: int) -> SHTables:
+def build_sh(patterns: np.ndarray, sigma: int,
+             native: bool | str = "auto") -> SHTables:
+    """native: as automata.ac.build_ac's."""
     patterns = np.asarray(patterns, dtype=np.uint8)
     p, m = patterns.shape
+    if native:
+        r = nat.build_sh_native(patterns, sigma)
+        if r is not None:
+            transition, final, bmBc, n = r
+            return SHTables(transition, final, bmBc, n, sigma, m)
+        if native is True:
+            raise RuntimeError("native builder requested but unavailable")
     goto = [dict()]
     final = [False]
     for pat in patterns:

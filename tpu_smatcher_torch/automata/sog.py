@@ -16,6 +16,8 @@ import dataclasses
 
 import numpy as np
 
+from tpu_smatcher_torch import native as nat
+
 SOG_B = 3
 
 
@@ -28,14 +30,21 @@ class SOGTables:
     m: int
 
 
-def build_sog(patterns: np.ndarray, sigma: int,
-              width: int | None = None) -> SOGTables:
+def build_sog(patterns: np.ndarray, sigma: int, width: int | None = None,
+              native: bool | str = "auto") -> SOGTables:
+    """native: as automata.ac.build_ac's."""
     patterns = np.asarray(patterns, dtype=np.uint8)
     p, m = patterns.shape
     if width is None:
         width = m
     if width not in (8, 16, 32) or m != width:
         raise ValueError("SOG requires m == width in {8, 16, 32}")
+    if native:
+        T = nat.build_sog_native(patterns, sigma, width)
+        if T is not None:
+            return SOGTables(T, width, m - SOG_B, sigma, m)
+        if native is True:
+            raise RuntimeError("native builder requested but unavailable")
     full = np.uint32((1 << width) - 1)
     T = np.full(sigma ** 3, full, dtype=np.uint32)
     # grams at offsets i in [0, m-B]: g = c_i + c_{i+1}*sigma + c_{i+2}*sigma^2

@@ -13,6 +13,8 @@ import dataclasses
 
 import numpy as np
 
+from tpu_smatcher_torch import native as nat
+
 #: bits shifted per character in the block hash (main.c:431)
 WM_BITS_IN_SHIFT = 2
 #: block (q-gram) size: the scan hashes the window's last 3 chars
@@ -47,12 +49,22 @@ def hash3_np(c0, c1, c2):
             << WM_BITS_IN_SHIFT) + c2.astype(np.int32)
 
 
-def build_wm(patterns: np.ndarray, sigma: int) -> WMTables:
+def build_wm(patterns: np.ndarray, sigma: int,
+             native: bool | str = "auto") -> WMTables:
+    """native: as automata.ac.build_ac's."""
     patterns = np.asarray(patterns, dtype=np.uint8)
     p, m = patterns.shape
     if m < WM_B:
         raise ValueError(f"Wu-Manber requires m >= {WM_B}")
     H = wm_shiftsize(sigma)
+    if native:
+        r = nat.build_wm_native(patterns, sigma, H)
+        if r is not None:
+            shift, prefix_value, prefix_index, prefix_size, lmax = r
+            return WMTables(shift, prefix_value, prefix_index, prefix_size,
+                            H, lmax, sigma, m)
+        if native is True:
+            raise RuntimeError("native builder requested but unavailable")
     shift = np.full(H, m - WM_B + 1, dtype=np.int32)
 
     # every (pattern, q) gram hash: q in [B, m], gram chars at q-3, q-2,

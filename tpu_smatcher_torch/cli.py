@@ -100,7 +100,9 @@ def build_parser() -> argparse.ArgumentParser:
                      help="streamed piece size in bytes (--stream)")
     run.add_argument("--verify", action="store_true",
                      help="cross-check against the host ground truth "
-                          "(loads the corpus windows on host; small corpora)")
+                          "(the native library's threaded count; numpy, "
+                          "which loads every window, where it does not "
+                          "build)")
     run.add_argument("--json", action="store_true",
                      help="print only the JSON result line")
     ckpt = p.add_argument_group("tables checkpoint")
@@ -502,9 +504,10 @@ def run(args, mesh=None) -> int:
         if text is None:                 # --stream: memmap for ground truth
             text = np.memmap(args.text, dtype=np.uint8, mode="r")
         if isinstance(pats, MixedPatternSet):
-            truth = sum(datagen.count_matches(text, g) for g in pats.groups)
+            truth = sum(datagen.count_matches(text, g, prefer_native=True)
+                        for g in pats.groups)
         else:
-            truth = datagen.count_matches(text, pats)
+            truth = datagen.count_matches(text, pats, prefer_native=True)
         ok = all(r["matches"] == truth for r in results)
         for r in results:
             r["ground_truth"] = int(truth)

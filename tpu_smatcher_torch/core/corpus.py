@@ -1,12 +1,13 @@
 """Corpus I/O (the port's own copy of tpu_smatcher/core/corpus.py): raw
 pre-encoded files, and FASTA / ASCII files encoded through an Alphabet.
 
-load_fasta encodes a file with a char map in a few vectorised numpy passes
-over its bytes, with the rules of the JAX package's native encoder
-(tpu_smatcher/native/builders.cpp:tpu_encode_fasta): a '>' at the start of
-a line opens a header, skipped up to its '\\n'; '\\n', '\\r', '\\t' and ' '
-are dropped; every other byte goes through the alphabet's LUT (upper and
-lower case letters to their codes, anything else to code 0).
+load_fasta encodes a file with a char map with the native encoder
+(native/builders.cpp:tpu_encode_fasta) where the library loads, else in a
+few vectorised numpy passes over its bytes (encode_fasta), to the same
+bytes: a '>' at the start of a line opens a header, skipped up to its
+'\\n'; '\\n', '\\r', '\\t' and ' ' are dropped; every other byte goes
+through the alphabet's LUT (upper and lower case letters to their codes,
+anything else to code 0).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import os
 
 import numpy as np
 
+from tpu_smatcher_torch import native
 from tpu_smatcher_torch.core.alphabet import Alphabet
 
 #: the LUT's mark for a byte that is dropped
@@ -80,13 +82,17 @@ def encode_fasta(raw: np.ndarray, alphabet: Alphabet) -> np.ndarray:
 
 def load_fasta(path: str, alphabet: Alphabet, name: str = "") -> Corpus:
     """A FASTA file: header lines skipped, whitespace dropped, encoded.
-    With a char map, encode_fasta over the whole file; without one (the
-    bytes must already be codes), the JAX package's line loop, which drops
-    every ASCII whitespace byte and validates through Alphabet.encode."""
+    With a char map, the native encoder over the whole file, or
+    encode_fasta where the library does not load; without one (the bytes
+    must already be codes), the JAX package's line loop, which drops every
+    ASCII whitespace byte and validates through Alphabet.encode."""
     name = name or os.path.basename(path)
     if alphabet.chars is not None:
-        return Corpus(encode_fasta(np.fromfile(path, dtype=np.uint8),
-                                   alphabet), alphabet, name)
+        raw = np.fromfile(path, dtype=np.uint8)
+        codes = native.encode_fasta_native(raw, _fasta_lut(alphabet))
+        if codes is None:
+            codes = encode_fasta(raw, alphabet)
+        return Corpus(codes, alphabet, name)
     chunks = []
     with open(path, "rb") as f:
         for line in f:

@@ -1,11 +1,13 @@
-"""Synthetic corpora and pattern sets from a seed, and the numpy ground
-truth (the port's own copy of tpu_smatcher/core/datagen.py, without its C
-oracle).  The same seeds give the same bytes as the JAX package's copy."""
+"""Synthetic corpora and pattern sets from a seed, and the ground truth
+(the port's own copy of tpu_smatcher/core/datagen.py): numpy, or the
+native library's threaded count.  The same seeds give the same bytes as the
+JAX package's copy."""
 
 from __future__ import annotations
 
 import numpy as np
 
+from tpu_smatcher_torch import native
 from tpu_smatcher_torch.core.alphabet import Alphabet
 from tpu_smatcher_torch.core.patterns import PatternSet
 
@@ -69,8 +71,20 @@ def match_starts(text: np.ndarray,
     return np.isin(win_keys, pat_keys)
 
 
-def count_matches(text: np.ndarray, patterns: PatternSet | np.ndarray) -> int:
-    """Ground truth: the number of window starts with >= 1 pattern match."""
+def count_matches(text: np.ndarray, patterns: PatternSet | np.ndarray,
+                  prefer_native: bool = False) -> int:
+    """Ground truth: the number of window starts with >= 1 pattern match.
+
+    prefer_native counts with the native library
+    (native/builders.cpp:tpu_count_cpu, threaded over the host's cores)
+    where it loads, and with numpy otherwise: the numpy oracle materialises
+    every window, gigabytes on a full-size corpus."""
+    if prefer_native:
+        codes = (patterns.codes if isinstance(patterns, PatternSet)
+                 else np.asarray(patterns, np.uint8))
+        c = native.count_cpu_native(np.asarray(text, np.uint8), codes)
+        if c is not None:
+            return c
     return int(match_starts(text, patterns).sum())
 
 

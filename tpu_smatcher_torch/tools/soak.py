@@ -12,8 +12,10 @@ highest code points.  Each trial runs, against datagen's ground truth:
     backends);
   - the randomly drawn engine (wm, sh, sbom or ac), its fast path on even
     trials and off on odd ones;
-  - the port's oracle of that engine (oracles.ORACLES), in place of the
-    reference's native C oracle, on trials with n <= 2^16;
+  - the native oracle (datagen.count_matches(prefer_native=True), the
+    port's native library) against datagen's numpy count, on every trial;
+  - the port's oracle of that engine (oracles.ORACLES) on trials with
+    n <= 2^16;
   - positions on every third trial;
   - a distributed count on every fifth trial, over 4 ranks, skipped where
     a shard is shorter than m - 1.  Those trials run in one group of four
@@ -129,6 +131,8 @@ def run_trial(tr: Trial, device: str) -> list[str]:
             bad.append(f"[{tr.index}] {label} {got} != {want} {tr.shape}")
 
     try:
+        check("NATIVE ORACLE",
+              datagen.count_matches(text, pats, prefer_native=True))
         if tr.n <= ORACLE_N:
             check(f"oracle-{tr.engine}",
                   ORACLES[tr.engine](text, pats.codes, tr.sigma))
