@@ -109,6 +109,30 @@ def test_cli_algo_all_agree(corpus_files, capsys):
         corpus_files[2]] * 6
 
 
+def test_cli_profile_reports_spans(tmp_path, capsys):
+    """--profile writes the Chrome trace of the timed scans, which holds
+    the port's spans, and their summary under "spans", with the routes
+    the scans took."""
+    from tpu_smatcher_torch.utils import profiling
+    logdir = tmp_path / "prof"
+    cli.main(["--synthetic", "--n", "60000", "--m", "16", "--p-size", "40",
+              "--alphabet", "4", "--algo", "fast", "--reps", "3",
+              "--verify", "--json", "--profile", str(logdir)] + PORT)
+    p = _json(capsys.readouterr().out)
+    assert p["matches"] == p["ground_truth"]
+    spans = p["spans"]
+    assert spans["tsm.count"]["calls"] == 3
+    assert sum(spans["tsm.route"]["paths"].values()) == 3
+    for name in ("tsm.enqueue", "tsm.filter", "tsm.compact", "tsm.verify",
+                 "tsm.readback"):
+        row = spans[name]
+        assert row["calls"] == 3 and 0 <= row["self_ms"] <= row["host_ms"]
+    names = {e.get("name") for e in json.loads(
+        (logdir / "trace.json").read_text())["traceEvents"]}
+    assert {"tsm.count", "tsm.route", "tsm.verify"} <= names
+    assert not profiling.tracing()
+
+
 def _fasta(path, text, lengths, seed):
     rng = np.random.default_rng(seed)
     chars = b"ACGT"

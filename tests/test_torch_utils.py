@@ -1,8 +1,7 @@
-"""The port's KMP, profiling utilities and top-level scan() against the
-JAX package's, on the CPU (tolerance 0 for tables and counts)."""
+"""The port's KMP, its torch.profiler trace and top-level scan() against
+the JAX package's, on the CPU (tolerance 0 for tables and counts)."""
 
 import json
-import time
 
 import numpy as np
 import pytest
@@ -16,8 +15,7 @@ from tpu_smatcher.utils.debug import dprint as jdprint
 import tpu_smatcher_torch as ts
 from tpu_smatcher_torch.automata import kmp_count, pre_kmp
 from tpu_smatcher_torch.core import datagen
-from tpu_smatcher_torch.utils import (PhaseTimer, dprint, emit_jsonl,
-                                      time_fn, trace)
+from tpu_smatcher_torch.utils import dprint, trace
 
 from torch_cases import jax_pats, make_case
 
@@ -42,48 +40,11 @@ def test_pre_kmp_known():
     assert kmp_count(p, p[:3]) == 0 and kmp_count(p[:0], p) == 0
 
 
-def test_phase_timer_accumulates():
-    pt = PhaseTimer()
-    with pt.phase("read"):
-        time.sleep(0.01)
-    with pt.phase("read"):
-        time.sleep(0.01)
-    with pt.phase("scan"):
-        pass
-    r = pt.report()
-    assert set(r) == {"read_s", "scan_s"}
-    assert r["read_s"] >= 0.02 and r["scan_s"] >= 0.0
-
-
-def test_time_fn_on_the_cpu_reports_time_jit_keys():
-    calls = []
-    x = torch.arange(1 << 16, dtype=torch.int32)
-
-    def f(v):
-        calls.append(1)
-        return int((v * 2).sum())
-
-    r = time_fn(f, x, reps=3, warmup=2, bytes_scanned=x.numel() * 4)
-    assert set(r) == {"best_s", "mean_s", "reps", "bytes_per_s"}
-    assert r["reps"] == 3 and len(calls) == 5
-    assert r["best_s"] > 0 and r["bytes_per_s"] > 0
-    assert r["mean_s"] >= r["best_s"]
-    assert "bytes_per_s" not in time_fn(f, x, reps=1, warmup=0)
-
-
 def test_trace_writes_a_chrome_trace(tmp_path):
     with trace(str(tmp_path)) as prof:
         torch.ones(1000).cumsum(0)
     assert prof.key_averages()
     assert json.loads((tmp_path / "trace.json").read_text())
-
-
-def test_emit_jsonl(tmp_path):
-    p = tmp_path / "metrics.jsonl"
-    emit_jsonl(str(p), {"matches": 1})
-    emit_jsonl(str(p), {"matches": 2})
-    recs = [json.loads(line) for line in p.read_text().splitlines()]
-    assert recs == [{"matches": 1}, {"matches": 2}]
 
 
 @pytest.mark.parametrize("sigma,m,engine", [(4, 8, "fast"), (4, 16, "fast"),

@@ -1,7 +1,8 @@
 """One rank of the port's distribution tests (tests/test_torch_parallel.py,
-tests/test_torch_multihost.py): joins a gloo group of CPU ranks over a
-FileStore, runs the named cases through tpu_smatcher_torch.parallel and
-writes each case's result (or its error) to OUT_DIR/rank<RANK>.json.
+tests/test_torch_multihost.py, tests/test_torch_tracing.py): joins a gloo
+group of CPU ranks over a FileStore, runs the named cases through
+tpu_smatcher_torch.parallel and writes each case's result (or its error)
+to OUT_DIR/rank<RANK>.json.
 
     python tests/torch_dist_worker.py RANK WORLD STORE_DIR OUT_DIR CASE...
 
@@ -185,6 +186,7 @@ INPUTS = {
     "mh4": lambda: _multihost(4),
     "mh256": lambda: _multihost(256),
     "two-process": _two_process,
+    "spans": lambda: make_case(4, 16, 32, 60_000, seed=9),
 }
 
 
@@ -338,6 +340,20 @@ def run_case(name, mesh, data_dir):
         dc, _ = _counter(pats, mesh)
         return {"n": n, "shard": shard.numpy().tolist() if kind == "mh4"
                 else None, "count": dc.count(shard, n=n)}
+    if kind == "spans":
+        from tpu_smatcher_torch.utils import profiling
+        text, pats = inp          # the fingerprint tier: a routed core
+        dc, _ = _counter(pats, mesh)
+        profiling.enable()
+        try:
+            profiling.clear()
+            count = dc.count(text)
+            reqs = profiling.requests(last=4)
+        finally:
+            profiling.disable()
+        names = {s.id: s.name for r in reqs for s in r}
+        return {"count": count, "requests": len(reqs),
+                "spans": [[s.name, names.get(s.parent)] for s in reqs[-1]]}
     raise KeyError(name)
 
 

@@ -123,7 +123,9 @@ def build_parser() -> argparse.ArgumentParser:
     prof = p.add_argument_group("profiling")
     prof.add_argument("--profile", metavar="LOGDIR",
                       help="record a torch.profiler trace of the timed scans "
-                           "(Chrome / Perfetto)")
+                           "(Chrome / Perfetto; with --reps > 1), and the "
+                           "port's spans over them, summed by name, under "
+                           "\"spans\" in the JSON result")
     return p
 
 
@@ -363,17 +365,23 @@ def run_engine(name, text, pats, args, dev, mesh, say, shard=None):
     count = scanner.count(tdev, **count_kw)
     t_first = time.time() - t0           # includes the kernels' build
     t_scan = t_scan_dev = t_first
+    spans = None
     if args.reps > 1:
-        from tpu_smatcher_torch.utils import trace
+        from tpu_smatcher_torch.utils import profiling
         lead = mesh is None or mesh.rank == 0
-        ctx = (trace(args.profile) if args.profile and lead
+        profile = args.profile and lead
+        ctx = (profiling.trace(args.profile) if profile
                else contextlib.nullcontext())
+        if profile:
+            profiling.clear()
         with ctx:
             times = []
             for _ in range(args.reps):
                 t0 = time.time()
                 count = scanner.count(tdev, **count_kw)
                 times.append(time.time() - t0)
+        if profile:
+            spans = profiling.summary()
         t_scan = t_scan_dev = min(times)
         # the device's steady rate: queue the scans, read the last; the
         # per-call rate above includes one host round trip per scan
@@ -422,7 +430,7 @@ def run_engine(name, text, pats, args, dev, mesh, say, shard=None):
             say(f"[{name:5s}] per-pattern counts (sum {per.sum()}) -> "
                 f"{args.per_pattern}")
 
-    return {
+    out = {
         "engine": name,
         "matches": int(count),
         "time_preproc_s": round(t_build, 4),
@@ -431,6 +439,9 @@ def run_engine(name, text, pats, args, dev, mesh, say, shard=None):
         "bytes_per_s": round(len(text) / t_scan, 1),
         "device_bytes_per_s": round(len(text) / t_scan_dev, 1),
     }
+    if spans is not None:
+        out["spans"] = spans
+    return out
 
 
 def engine_names(args, pats) -> list:

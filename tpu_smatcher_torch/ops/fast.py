@@ -52,6 +52,7 @@ from tpu_smatcher_torch.ops.common import (bits_per_char, cdiv, check_count32,
                                            stream_positions_file)
 from tpu_smatcher_torch.ops.keys import FP_MULTS, fp_keys, wid_keys
 from tpu_smatcher_torch.ops.lookup import bitmap_test, pack_bitmap, pack_rows
+from tpu_smatcher_torch.utils.profiling import span
 
 BITMAP_BITS = 1 << 16
 #: per-stage derivation constants: stage s tests key_s = (fp0 + C_s*fp1 +
@@ -551,16 +552,19 @@ def verify_attr(tw, idxs, ft: FastTables, *, n_starts: int):
 
 
 def verify_text(ft: FastTables, text: torch.Tensor, idxs) -> torch.Tensor:
-    """verify_count over text's word view (cuda_filter.words_view)."""
+    """verify_count over text's word view (cuda_filter.words_view), as
+    span tsm.verify."""
     n = int(text.shape[0])
-    tw = cuda_filter.words_view(text, words_len(n, ft.words))
-    return verify_count(tw, idxs, ft, n_starts=n - ft.m + 1)
+    with span("tsm.verify", device=text):
+        tw = cuda_filter.words_view(text, words_len(n, ft.words))
+        return verify_count(tw, idxs, ft, n_starts=n - ft.m + 1)
 
 
 def count_from_slots(ft: FastTables, text, slots, ovf, *, cap: int):
     """The cascade's epilogue: compact its (R, 16) slots, verify the
     candidates.  Returns (count 0-d int32, overflow 0-d int32)."""
-    idxs, o, _ = compact_valrows(slots, cap=cap)
+    with span("tsm.compact", device=slots):
+        idxs, o, _ = compact_valrows(slots, cap=cap)
     c = verify_text(ft, text, idxs)
     return c.to(torch.int32), (o | (ovf != 0)).to(torch.int32)
 
@@ -568,7 +572,8 @@ def count_from_slots(ft: FastTables, text, slots, ovf, *, cap: int):
 def count_from_sub_blocks(ft: FastTables, text, pos, counts, *, cap: int):
     """The slot route's epilogue: compact filter_slots' output, verify the
     candidates.  Returns (count 0-d int32, overflow 0-d int32)."""
-    idxs, o, _ = compact_slots(pos, counts, slots=BLOCK_SLOTS, cap=cap)
+    with span("tsm.compact", device=pos):
+        idxs, o, _ = compact_slots(pos, counts, slots=BLOCK_SLOTS, cap=cap)
     return verify_text(ft, text, idxs).to(torch.int32), o.to(torch.int32)
 
 
@@ -756,21 +761,25 @@ def enqueue_sum(scan, texts, device: torch.device):
 class ScanFuture:
     """Handle for an in-flight device scan: the (count, overflow) pair stays
     on the device until result().  On overflow result() runs the retry,
-    which counts exactly."""
+    which counts exactly.  `request`: the traced request of the scan's
+    enqueue, which result()'s spans join."""
 
-    __slots__ = ("_co", "_retry")
+    __slots__ = ("_co", "_retry", "_request")
 
-    def __init__(self, count_dev, overflow_dev, retry=None):
+    def __init__(self, count_dev, overflow_dev, retry=None, request=None):
         self._co = torch.stack([count_dev.to(torch.int32),
                                 overflow_dev.to(torch.int32)])
         self._retry = retry
+        self._request = request
 
     def result(self) -> int:
-        c, o = self._co.tolist()
+        with span("tsm.readback", request=self._request):
+            c, o = self._co.tolist()
         if o:
             if self._retry is None:
                 raise OverflowError("candidate cap exceeded")
-            return self._retry()
+            with span("tsm.ladder", request=self._request):
+                return self._retry()
         return int(c)
 
 
@@ -808,16 +817,19 @@ class FastScanner:
     # -- the async path: one enqueue, no host sync --------------------------
 
     def count(self, text) -> int:
-        if self._kernels():
-            return self.count_async(text).result()
-        return self._count_retry(self._as_text(text))
+        with span("tsm.count"):
+            if self._kernels():
+                return self.count_async(text).result()
+            return self._count_retry(self._as_text(text))
 
     def count_async(self, text) -> ScanFuture:
         """Enqueue a scan; the count stays on the device until
         ScanFuture.result()."""
-        t = self._as_text(text)
-        c, o = self._async_scan()(t)
-        return ScanFuture(c, o, retry=functools.partial(self._async_retry, t))
+        with span("tsm.enqueue") as sp:
+            t = self._as_text(text)
+            c, o = self._async_scan()(t)
+            return ScanFuture(c, o, retry=functools.partial(
+                self._async_retry, t), request=sp.request)
 
     def _async_scan(self):
         """The scan count_async runs now: the dense pass after a
@@ -837,9 +849,16 @@ class FastScanner:
         if not self._kernels():
             return fast_count_core(text, ft, tile=self.tile, cap=self.cap)
         if ft.exact:
-            return (cuda_filter.exact_count(text, ft.bitmaps[0], m=ft.m,
-                                            sigma=ft.sigma), self._zero(text))
+            return self._exact_count(text), self._zero(text)
         return self._fp_device_count(text)
+
+    def _exact_count(self, text, guard: bool = False):
+        """The exact tier's count (0-d int32 on the device), as span
+        tsm.exact."""
+        ft = self.ft
+        with span("tsm.exact"):
+            return cuda_filter.exact_count(text, ft.bitmaps[0], m=ft.m,
+                                           sigma=ft.sigma, guard=guard)
 
     def _pick_path(self, n, k):
         """Route an fp-tier scan among the slot route, the two-phase cascade
@@ -879,7 +898,11 @@ class FastScanner:
         overflow (cap, sub-block slots, cascade rows, mask rows) is in the
         flag; the future's retry then counts exactly."""
         n = int(text.shape[0])
-        path, k1, kt = self._pick_path(n, stages_for(self.ft, n, self.cap))
+        with span("tsm.route") as sp:
+            path, k1, kt = self._pick_path(n, stages_for(self.ft, n,
+                                                         self.cap))
+            if sp:
+                sp.attrs.update(path=path, k1=k1, kt=kt)
         return self._route_count(text, path, k1, kt)
 
     def _route_count(self, text, path, k1, kt):
@@ -887,12 +910,14 @@ class FastScanner:
         _route_costs gives them), no host sync."""
         ft = self.ft
         if path == "cascade":
-            slots, ovf = cuda_filter.cascade(text, ft.bitmaps[:kt], m=ft.m,
-                                             k1=k1, cd=ft.cd(kt))
+            with span("tsm.filter"):
+                slots, ovf = cuda_filter.cascade(text, ft.bitmaps[:kt],
+                                                 m=ft.m, k1=k1, cd=ft.cd(kt))
             return count_from_slots(ft, text, slots, ovf, cap=self.cap)
         if path == "slot":
-            pos, counts = cuda_filter.filter_slots(text, ft.bitmaps[:kt],
-                                                   m=ft.m, cd=ft.cd(kt))
+            with span("tsm.filter"):
+                pos, counts = cuda_filter.filter_slots(
+                    text, ft.bitmaps[:kt], m=ft.m, cd=ft.cd(kt))
             return count_from_sub_blocks(ft, text, pos, counts, cap=self.cap)
         c, o = self._mask_verify(
             text, kt, caprows=min(self.cap, max(CAPROWS, 1 << 17)),
@@ -907,15 +932,18 @@ class FastScanner:
         pattern id or -1, overflow)."""
         ft = self.ft
         n = int(piece.shape[0])
-        mask2d = cuda_filter.filter_mask(piece, ft.bitmaps[:k], m=ft.m,
-                                         cd=ft.cd(k))
-        idxs, o, _ = compact_mask(mask2d,
-                                  caprows=min(caprows, mask2d.shape[0]),
-                                  cap=self.cap, row_slots=row_slots)
+        with span("tsm.filter"):
+            mask2d = cuda_filter.filter_mask(piece, ft.bitmaps[:k], m=ft.m,
+                                             cd=ft.cd(k))
+        with span("tsm.compact", device=mask2d):
+            idxs, o, _ = compact_mask(mask2d,
+                                      caprows=min(caprows, mask2d.shape[0]),
+                                      cap=self.cap, row_slots=row_slots)
         if not matched:
             return verify_text(ft, piece, idxs), o
-        tw = cuda_filter.words_view(piece, words_len(n, ft.words))
-        r, pid = verify_attr(tw, idxs, ft, n_starts=n - ft.m + 1)
+        with span("tsm.verify", device=piece):
+            tw = cuda_filter.words_view(piece, words_len(n, ft.words))
+            r, pid = verify_attr(tw, idxs, ft, n_starts=n - ft.m + 1)
         return idxs, r, pid, o
 
     def _device_count_dense(self, text):
@@ -929,8 +957,7 @@ class FastScanner:
         if n < ft.m:
             return self._zero(text), self._zero(text)
         if ft.exact:
-            return (cuda_filter.exact_count(text, ft.bitmaps[0], m=ft.m,
-                                            sigma=ft.sigma), self._zero(text))
+            return self._exact_count(text), self._zero(text)
         k = stages_for(ft, n, self.cap)
         small = n - ft.m + 1 <= max(self.cap // 2, 1 << 17)
         c, o = self._mask_verify(
@@ -956,8 +983,7 @@ class FastScanner:
         if n < ft.m:
             return 0, False
         if ft.exact:
-            return int(cuda_filter.exact_count(text, ft.bitmaps[0], m=ft.m,
-                                               sigma=ft.sigma)), False
+            return int(self._exact_count(text)), False
         k = stages_for(ft, n, self.cap)
         if n * ft.density ** k > self.cap / 4 and k >= len(ft.bitmaps):
             # every built stage together still misses the candidate budget
@@ -1070,16 +1096,20 @@ class FastScanner:
         and the ORed overflow flag and has no retry (as in the JAX
         package).  The timing primitive: (t(reps) - t(1)) / (reps - 1) is
         one scan's device time."""
-        t = self._as_text(text)
-        return ScanFuture(*self._enqueue_sum([t] * reps))
+        with span("tsm.enqueue") as sp:
+            t = self._as_text(text)
+            return ScanFuture(*self._enqueue_sum([t] * reps),
+                              request=sp.request)
 
     def count_stack_async(self, batch) -> ScanFuture:
         """Total count of a (k, nsh) batch of equal-length texts: the rows'
         scans enqueued back to back and summed on the device.  An overflow
         retries through scan_many (exact)."""
-        b = self._as_text(batch, ndim=2)
-        return ScanFuture(*self._enqueue_sum(list(b)),
-                          retry=lambda: sum(self.scan_many(list(b))))
+        with span("tsm.enqueue") as sp:
+            b = self._as_text(batch, ndim=2)
+            return ScanFuture(*self._enqueue_sum(list(b)),
+                              retry=lambda: sum(self.scan_many(list(b))),
+                              request=sp.request)
 
     def _enqueue_sum(self, texts):
         """enqueue_sum of the scans count_async runs now."""
@@ -1104,9 +1134,7 @@ class FastScanner:
         if int(t.shape[0]) < ft.m:
             return self._zero(t), self._zero(t)
         if ft.exact:
-            return (cuda_filter.exact_count(t, ft.bitmaps[0], m=ft.m,
-                                            sigma=ft.sigma, guard=True),
-                    self._zero(t))
+            return self._exact_count(t, guard=True), self._zero(t)
         return self._fp_device_count(t)
 
     def _dense_core(self):

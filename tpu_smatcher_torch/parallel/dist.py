@@ -46,6 +46,7 @@ import torch.distributed as dist
 
 from tpu_smatcher_torch.ops.common import check_count32
 from tpu_smatcher_torch.parallel.mesh import DATA_AXIS, Mesh, shard_text
+from tpu_smatcher_torch.utils.profiling import span
 
 
 #: the cap of the seam scans (DistributedCounter._seam_fn)
@@ -73,13 +74,15 @@ class _DistFuture:
     exact distributed retry ladder when one is attached (counts are TOTAL,
     as on one device: the reference's MPI_Reduce sums unconditionally,
     main.c:656); without one it raises.  Every rank reads the same pair, so
-    every rank takes the same branch."""
+    every rank takes the same branch.  `request`: the traced request of
+    the scan, which result()'s spans join."""
 
-    __slots__ = ("_co", "_retry")
+    __slots__ = ("_co", "_retry", "_request")
 
-    def __init__(self, co_dev, retry=None):
+    def __init__(self, co_dev, retry=None, request=None):
         self._co = co_dev
         self._retry = retry
+        self._request = request
 
     def result_with_overflow(self) -> tuple[int, bool]:
         """The RAW (count, overflow) of the single scan, no retry; an
@@ -88,13 +91,15 @@ class _DistFuture:
         return int(c), bool(o)
 
     def result(self) -> int:
-        c, o = self._co.tolist()
+        with span("tsm.readback", request=self._request):
+            c, o = self._co.tolist()
         if o:
             if self._retry is None:
                 raise OverflowError(
                     "candidate cap exceeded on some shard; raise "
                     "cap=/row_slots=")
-            return self._retry()
+            with span("tsm.ladder", request=self._request):
+                return self._retry()
         return int(c)
 
 
@@ -178,8 +183,9 @@ class _Sharded:
         co = None
         for off, owned in self.spans():
             own = off < self.per - self.halo
-            co = self.count(core_fn if own else (seam_fn or core_fn), off,
-                            owned, co)
+            with span("tsm.dist.scan" if own else "tsm.dist.seam"):
+                co = self.count(core_fn if own else (seam_fn or core_fn),
+                                off, owned, co)
         return co
 
 
@@ -205,8 +211,9 @@ def _shard_ext(text, mesh: Mesh, *, m: int, sigma: int, n):
         raise ValueError(
             f"shard size {per} < m-1 = {m - 1}: the one-hop halo exchange "
             "cannot cover a window; use fewer devices or a longer text")
-    recv = _halo(shard, mesh, halo=m - 1, sigma=sigma) if m > 1 else \
-        shard[:0]
+    with span("tsm.dist.halo"):
+        recv = _halo(shard, mesh, halo=m - 1, sigma=sigma) if m > 1 else \
+            shard[:0]
     base = mesh.rank * per
     stop = per + m - 1
     if sigma >= 256:
@@ -251,16 +258,21 @@ class DistributedCounter:
         length of padded shards (load_corpus_shards), consulted for sigma
         = 256 only; sigma <= 255 shards are sigma-padded, which
         self-masks."""
-        return self.count_async(text, n=n).result()
+        with span("tsm.count"):
+            return self.count_async(text, n=n).result()
 
     def count_async(self, text, *, n: int | None = None) -> _DistFuture:
         """Scan this rank's shard and enqueue the all-reduce; the summed
         (count, overflow) pair stays on the device until result()."""
-        sh = _shard_ext(text, self.mesh, m=self.m, sigma=self.sigma, n=n)
-        co = _all_reduce(sh.scan(self._core_fn, self._seam_fn))
-        retry = (None if self.fast is None
-                 else lambda: self._retry_total(sh))
-        return _DistFuture(co, retry)
+        with span("tsm.enqueue") as sp:
+            sh = _shard_ext(text, self.mesh, m=self.m, sigma=self.sigma,
+                            n=n)
+            co = sh.scan(self._core_fn, self._seam_fn)
+            with span("tsm.dist.all_reduce"):
+                _all_reduce(co)
+            retry = (None if self.fast is None
+                     else lambda: self._retry_total(sh))
+            return _DistFuture(co, retry, request=sp.request)
 
     def scan_many(self, texts) -> list[int]:
         """Pipelined batch counts: every scan is enqueued before any

@@ -1,7 +1,7 @@
-"""Timing, tracing, metrics records and debug printing of the port."""
+"""Tracing (the count path's spans, torch.profiler traces) and debug
+printing of the port."""
 
 from tpu_smatcher_torch.utils.debug import dprint
-from tpu_smatcher_torch.utils.profiling import (PhaseTimer, emit_jsonl,
-                                                time_fn, trace)
+from tpu_smatcher_torch.utils.profiling import trace
 
-__all__ = ["PhaseTimer", "dprint", "emit_jsonl", "time_fn", "trace"]
+__all__ = ["dprint", "trace"]
