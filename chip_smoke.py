@@ -98,7 +98,10 @@
    groups' make_fast tiers; the world-1 distributed count beside
    make_fast's at each tier, and the world-2 ranks' own times), each
    kernel against its plain version
-   and its bound, and words_view against one PyTorch call.  Each kernel is
+   and its bound, and words_view against one PyTorch call; the cascade's
+   compaction (compact_rows, replacing no TPU kernel) on the fp tier's
+   cascade output, 2^21 rows, against compact_valrows and its bytes bound.
+   Each kernel is
    first held against its plain version, exactly, on the inputs the main
    paths gave it (the cascade at every bench tier's stages, filter_mask
    at dense32's 7 and saturated's 32 stages, exact_mask over the whole
@@ -202,7 +205,18 @@ KERNELS = {
     "stages": (_CE, "stages", _STAGES_CU, f"{_PE}:115"),
     "stages_flat": (_CE, "stages", _STAGES_CU, f"{_PE}:213"),
 }
-WRAPPERS = sorted({(mod, w) for mod, w, _, _ in KERNELS.values()})
+#: the kernels that replace no TPU kernel (XLA code there), by the function
+#: each replaces: (module, wrapper, source, what it replaces)
+EPILOGUE_KERNELS = {
+    "compact_valrows": (_CF, "compact_rows",
+                        "tpu_smatcher_torch/csrc/compact.cu",
+                        "tpu_smatcher/ops/fast.py:compact_valrows (XLA)"),
+}
+WRAPPERS = sorted({(mod, w) for mod, w, _, _ in (*KERNELS.values(),
+                                                 *EPILOGUE_KERNELS.values())})
+#: compact_rows calls timed back to back: one enqueues in less time than
+#: the kernel runs, so the device never waits for the host
+COMPACT_LOOP = 20
 
 #: the engines phase: (name, m) of the eleven engines, each on bench.py's
 #: p=10k pattern set of its m
@@ -465,7 +479,7 @@ class Checks:
     """Kernel-vs-plain comparisons; every one must be exact."""
 
     def __init__(self):
-        self.max_err = {k: 0 for k in KERNELS}
+        self.max_err = {k: 0 for k in (*KERNELS, *EPILOGUE_KERNELS)}
 
     def _err(self, name, err, label):
         self.max_err[name] = max(self.max_err[name], err)
@@ -2271,6 +2285,24 @@ def kernel_time(card, ck, label, name, kern, plain, bnd, library=None):
             "bound_by": bnd[1], "library_ms": lib_ms}
 
 
+def compact_time(card, ck, label, slots, ovf, cap):
+    """compact_rows held against its plain version on the cascade's slots
+    (exactly), then both timed, the kernel over COMPACT_LOOP calls back to
+    back; the bound reads the slots once and writes the outputs once."""
+    from tpu_smatcher_torch.ops import cuda_filter as cf
+    kern = functools.partial(cf.compact_rows, slots, ovf, cap=cap)
+    plain = functools.partial(cf.compact_rows_plain, slots, ovf, cap=cap)
+    ck.same("compact_valrows", kern(), plain(), f"{label} (main-path inputs)")
+    ms = cuda_ms(lambda: [kern() for _ in range(COMPACT_LOOP)]) / COMPACT_LOOP
+    p_ms = cuda_ms(plain)
+    bnd = bound(slots.numel() * 4 + 4 + cap * 8 + 8 + 4, 0)
+    log(f"[{card}] {label}: compact_valrows kernel {ms:.4f} ms "
+        f"({int(slots.shape[0])} rows, cap {cap}) vs plain {p_ms:.3f} ms, "
+        f"bound {bnd[0]:.4f} ms by {bnd[1]} ({bnd[0] / ms:.1%})")
+    return {"ms": ms, "plain_ms": p_ms, "bound_ms": bnd[0],
+            "bound_by": bnd[1], "library_ms": None}
+
+
 def positions_timings(card, ck, tdev, ext, engines):
     """Profiles of the positions phase's paths, and exact_mask and the
     guarded exact_count on its inputs."""
@@ -2366,6 +2398,8 @@ def timings(card, ck, tdev, engines, slot_eng, dense, sat):
             continue
         per_kernel["cascade"] = kernel_time(
             card, ck, f"tier {name}", "cascade", kern, plain, bnd)
+        per_kernel["compact_valrows"] = compact_time(
+            card, ck, f"tier {name}", *kern(), eng.cap)
 
     ft = slot_eng.ft
     path_times(card, "slot32", slot_eng, tdev, async_scan)
@@ -2696,6 +2730,12 @@ def main() -> int:
     kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
                 "launches": total[k], "max_abs_err": ck.max_err[k],
                 **per_kernel[k]} for k, (_, _, src, rep) in KERNELS.items()]
+    # the epilogue kernels' calls over the whole run, checks included
+    from tpu_smatcher_torch.ops import cuda_filter as cf
+    kernels += [{"name": k, "route": "cuda", "source": src, "replaces": rep,
+                 "launches": cf.EPILOGUE_LAUNCHES[k],
+                 "max_abs_err": ck.max_err[k], **per_kernel[k]}
+                for k, (_, _, src, rep) in EPILOGUE_KERNELS.items()]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -145,6 +145,105 @@ def test_cascade_kernel_overflow_matches_plain(cuda):
     assert _check_cascade(cuda, text, pats, stage_bits=32768) == 1
 
 
+def _check_compact(slots, ovf, cap):
+    """compact_rows on the card against its plain version (compact_valrows,
+    the overflow OR-ed with ovf), bit for bit: one call counted in
+    EPILOGUE_LAUNCHES, none in LAUNCHES.  Returns (overflow, n_cand)."""
+    before, launches = dict(cf.EPILOGUE_LAUNCHES), dict(cf.LAUNCHES)
+    got = cf.compact_rows(slots, ovf, cap=cap)
+    torch.cuda.synchronize()
+    assert cf.EPILOGUE_LAUNCHES["compact_valrows"] == \
+        before["compact_valrows"] + 1
+    assert cf.LAUNCHES == launches
+    want = cf.compact_rows_plain(slots, ovf, cap=cap)
+    for g, w in zip(got, want, strict=True):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w)
+    return int(got[1]), int(got[2])
+
+
+@pytest.mark.parametrize("name", kc.COMPACT_EDGE_CASES)
+def test_compact_kernel_at_edges_matches_plain(cuda, name):
+    """No candidate, every slot live, n_cand == cap and cap + 1, a cap
+    above the slot count, the cascade's row overflow with few
+    candidates."""
+    slots, ovf, cap = kc.compact_edge_case(name, cuda)
+    o, n_cand = _check_compact(slots, ovf, cap)
+    assert o == int(n_cand > cap or int(ovf))
+
+
+@pytest.mark.parametrize("rows", [1, 127, 1023, 1024, 1025, 3 * 1024 + 77,
+                                  1 << 21])
+def test_compact_kernel_on_any_row_count_matches_plain(cuda, rows):
+    """Row counts around the kernel's 1,024-row tile and the flagship's
+    2^21, with a cap that holds every candidate (4 a row against ~0.16)
+    and one that overflows (rows / 8), and a view starting a few rows
+    in."""
+    slots = torch.from_numpy(kc.sparse_slots(rows, 0.01, seed=rows)).to(cuda)
+    zero = torch.zeros((), dtype=torch.int32, device=cuda)
+    assert _check_compact(slots, zero, 4 * rows)[0] == 0
+    _check_compact(slots, zero, max(1, rows // 8))
+    if rows > 3:
+        _check_compact(slots[3:], zero, 4 * rows)
+
+
+def test_compact_kernel_on_the_flagship_cascade_output(cuda):
+    """The cascade's slots over 256 MiB of DNA against an m=32 p=10k panel
+    (the benchmark's flagship shapes, 2^21 rows), then over the same text
+    with pattern 0 planted every 32 bytes across 8 MiB: 262,144 matches,
+    past the cap."""
+    text, pats = make_case(4, 32, 10_000, 1 << 28, seed=32)
+    eng = make_fast(pats, device=cuda)
+    n = len(text)
+    path, k1, kt = eng._pick_path(n, tfast.stages_for(eng.ft, n, eng.cap))
+    assert path == "cascade"
+    t = torch.from_numpy(text).to(cuda)
+    args = dict(m=32, k1=k1, cd=eng.ft.cd(kt))
+    slots, ovf = cf.cascade(t, eng.ft.bitmaps[:kt], **args)
+    assert slots.shape == ((n - 31 + 127) // 128, 16)
+    o, n_cand = _check_compact(slots, ovf, eng.cap)
+    assert o == 0 and n_cand > 0
+    plant = torch.from_numpy(pats.codes[0].astype(np.uint8)).to(cuda)
+    t[1 << 24:(1 << 24) + (1 << 23)].view(-1, 32)[:] = plant
+    slots, ovf = cf.cascade(t, eng.ft.bitmaps[:kt], **args)
+    o, n_cand = _check_compact(slots, ovf, eng.cap)
+    assert o == 1 and n_cand >= 1 << 18
+
+
+def test_cascade_route_takes_the_compaction_kernel(cuda):
+    """Counts on the cascade route equal the plain path's (the CPU scanner)
+    and the truth, each count one compaction kernel call counted apart
+    from LAUNCHES (which sees the cascade and the word view only), and the
+    tsm.compact spans say "cuda"."""
+    from tpu_smatcher_torch.utils import profiling
+    text, pats = wide_case(0.02)
+    eng = tfast.FastScanner(tfast.build_fast(
+        pats.codes, 4, stage_bits=32768, device=cuda), cap=1 << 14)
+    n = len(text)
+    assert eng._pick_path(n, tfast.stages_for(eng.ft, n, eng.cap))[0] == \
+        "cascade"
+    t = torch.from_numpy(text).to(cuda)
+    plain = tfast.FastScanner(tfast.build_fast(
+        pats.codes, 4, stage_bits=32768, device="cpu"), cap=1 << 14).count(
+        torch.from_numpy(text))
+    assert plain == datagen.count_matches(text, pats)
+    assert eng.count(t) == plain               # warm
+    before, launches = dict(cf.EPILOGUE_LAUNCHES), dict(cf.LAUNCHES)
+    profiling.clear()
+    profiling.enable()
+    try:
+        assert [eng.count(t) for _ in range(3)] == [plain] * 3
+        spans = profiling.summary()
+    finally:
+        profiling.disable()
+        profiling.clear()
+    assert cf.EPILOGUE_LAUNCHES["compact_valrows"] == \
+        before["compact_valrows"] + 3
+    assert {k: v - launches[k] for k, v in cf.LAUNCHES.items()
+            if v != launches[k]} == {"cascade": 3, "words_view": 3}
+    assert spans["tsm.compact"]["paths"] == {"cuda": 3}
+
+
 def _filter_case(sigma, m, stage_bits):
     text, pats = make_case(sigma, m, 3000, 200_003, seed=m + sigma)
     return text, tfast.build_fast(pats.codes, sigma, stage_bits=stage_bits,

@@ -15,6 +15,7 @@ from tpu_smatcher.ops import fast as jfast
 from tpu_smatcher.ops import keys as jkeys
 from tpu_smatcher.ops import pallas_filter as pf
 
+from tpu_smatcher_torch import kernel_cases as kc
 from tpu_smatcher_torch.core import datagen
 from tpu_smatcher_torch.ops import cuda_filter as cf
 from tpu_smatcher_torch.ops import fast as tfast
@@ -284,6 +285,87 @@ def test_nonzero_scatter_matches_jax():
         want = np.asarray(jfast.nonzero_scatter(jnp.asarray(mask), size, -7))
         got = tfast.nonzero_scatter(torch.from_numpy(mask), size, -7)
         assert np.array_equal(got.numpy(), want)
+
+
+def _compact_reference(slots, ovf, cap):
+    """compact_rows' outputs by numpy: the live slot values in row-major
+    order, the first cap of them, then -1; overflow; the true total."""
+    flat = slots.reshape(-1).astype(np.int64)
+    live = flat[flat >= 0]
+    idxs = np.full(cap, -1, np.int64)
+    idxs[:min(cap, len(live))] = live[:cap]
+    return idxs, int(len(live) > cap or ovf != 0), len(live)
+
+
+@pytest.mark.parametrize("name", kc.COMPACT_EDGE_CASES)
+def test_compact_valrows_at_the_kernels_edges(name):
+    """compact_valrows, and compact_rows on the CPU, at the edges
+    csrc/compact.cu must keep: no candidate, every slot live, n_cand ==
+    cap, n_cand == cap + 1 (the first cap kept in row order), a cap above
+    the slot count, the cascade's row overflow with few candidates."""
+    slots, ovf, cap = kc.compact_edge_case(name, "cpu")
+    want_i, want_o, want_n = _compact_reference(slots.numpy(), int(ovf), cap)
+    idxs, o, n_cand = tfast.compact_valrows(slots, cap=cap)
+    assert idxs.dtype == torch.int64 and np.array_equal(idxs.numpy(), want_i)
+    assert bool(o) == (want_n > cap) and int(n_cand) == want_n
+    idxs, o, n_cand = cf.compact_rows(slots, ovf, cap=cap)
+    assert np.array_equal(idxs.numpy(), want_i)
+    assert o.dtype == torch.int32 and o.dim() == 0 and int(o) == want_o
+    assert n_cand.dtype == torch.int64 and int(n_cand) == want_n
+    if name == "cap_plus_one":
+        assert want_n == cap + 1 and want_o == 1
+    if name == "ovf_few":
+        assert 0 < want_n < cap and want_o == 1
+
+
+@pytest.mark.parametrize("ovf", [0, 1])
+def test_compact_rows_on_cpu_runs_compact_valrows(monkeypatch, ovf):
+    """Given CPU tensors, the wrapper runs compact_valrows and returns its
+    outputs unchanged, the overflow OR-ed with the cascade's ovf, and
+    counts no launch."""
+    slots = torch.from_numpy(kc.sparse_slots(2500, 0.01, seed=6))
+    calls = []
+
+    def spy(vals2d, *, cap):
+        calls.append(cap)
+        return real(vals2d, cap=cap)
+
+    real = tfast.compact_valrows
+    monkeypatch.setattr(tfast, "compact_valrows", spy)
+    before = dict(cf.EPILOGUE_LAUNCHES)
+    for cap in (64, 4096):                  # 64 < n_cand: overflow
+        want_i, want_o, want_n = real(slots, cap=cap)
+        idxs, o, n_cand = cf.compact_rows(
+            slots, torch.tensor(ovf, dtype=torch.int32), cap=cap)
+        assert torch.equal(idxs, want_i) and torch.equal(n_cand, want_n)
+        assert int(o) == (int(want_o) | ovf)
+    assert calls == [64, 4096]
+    assert cf.EPILOGUE_LAUNCHES == before
+
+
+@pytest.mark.parametrize("bad", ["dtype", "rank", "width", "ovf_dtype",
+                                 "ovf_rank", "device_mix", "cap"])
+def test_compact_rows_rejects_what_the_kernel_does_not_take(bad):
+    slots = torch.from_numpy(kc.sparse_slots(10, 0.1, seed=7))
+    ovf = torch.zeros((), dtype=torch.int32)
+    cap, err = 64, TypeError
+    if bad == "dtype":
+        slots = slots.to(torch.int64)
+    elif bad == "rank":
+        slots = slots.reshape(-1)
+    elif bad == "width":
+        slots = slots.reshape(20, 8)
+    elif bad == "ovf_dtype":
+        ovf = ovf.to(torch.bool)
+    elif bad == "ovf_rank":
+        ovf = ovf.reshape(1)
+    elif bad == "device_mix":
+        ovf, err = torch.zeros((), dtype=torch.int32, device="meta"), \
+            ValueError
+    else:
+        cap, err = -1, ValueError
+    with pytest.raises(err):
+        cf.compact_rows(slots, ovf, cap=cap)
 
 
 #: (sigma, m) of the k-stage filter cases: DNA, a protein-sized alphabet at

@@ -125,6 +125,19 @@ def test_self_time_is_the_span_less_its_children(fp_case, traced):
     assert rows["tsm.count"]["self_ms"] < rows["tsm.count"]["host_ms"]
 
 
+def test_compact_span_carries_its_path(fp_case, traced):
+    """The cascade route's tsm.compact span says which compaction ran
+    ("torch" here, the plain version; "cuda" on the card), and summary()
+    counts the calls by it."""
+    text, eng, truth = fp_case
+    assert eng.count(text) == truth
+    assert eng.count(text) == truth
+    compacts = [s for r in profiling.requests(last=2) for s in r
+                if s.name == "tsm.compact"]
+    assert [s.attrs["path"] for s in compacts] == ["torch", "torch"]
+    assert profiling.summary()["tsm.compact"]["paths"] == {"torch": 2}
+
+
 def test_the_store_is_bounded_and_keeps_whole_requests(exact_case, traced,
                                                        monkeypatch):
     """The oldest spans leave a full store; a request that lost one is

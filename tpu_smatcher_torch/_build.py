@@ -57,6 +57,10 @@ SOURCES = {
                              _vp, _i64, _i32, _vp]},
     # (text, n, out, nw, device, stream)
     "words.cu": {"tsm_words_view": [_vp, _i64, _vp, _i64, _i32, _vp]},
+    # (slots, rows, ovf, counts, n_tiles, idxs, cap, n_cand, overflow,
+    #  device, stream)
+    "compact.cu": {"tsm_compact_rows": [_vp, _i64, _vp, _vp, _i64, _vp,
+                                        _i64, _vp, _vp, _i32, _vp]},
     # (text, n, m, sigma, guard, mode, desc, tables, n_stages, cd, out0,
     #  out1, n_out, device, stream)
     "stages.cu": {"tsm_stages": [_vp, _i64, _i32, _i32, _i32, _i32, _vp, _vp,

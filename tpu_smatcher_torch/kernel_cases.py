@@ -7,7 +7,11 @@ launch of about 2^18 starts and n = m, sigma 2 to 256 with bytes >= sigma
 — and the stage-chain cases of csrc/stages.cu — every chain kind
 EngineFastPath builds at m = 3 to 4097 on views at every address mod 16,
 fp stages past shared memory, chains outside EngineFastPath's, and
-launches above 48 KB of shared memory around a smaller one.  Every input is
+launches above 48 KB of shared memory around a smaller one — and the
+compaction's cases of csrc/compact.cu (the cascade's slots with no
+candidate, every slot live, exactly cap candidates and one more, a cap
+above the slot count, the cascade's row overflow with few candidates;
+slots of any row count).  Every input is
 made with numpy from a seed; holding a kernel against its plain version is
 the caller's part.  Nothing here builds or launches a kernel."""
 
@@ -253,3 +257,41 @@ def smaller_launch_cases(device):
              [tables[0], mid], 32),
             (t, *small, 8),
             (t, *big, 32)]
+
+
+#: the compaction's edge cases (cuda_filter.compact_rows), on 3,000 rows
+#: (three of csrc/compact.cu's 1,024-row tiles, the last ragged) or 5
+COMPACT_EDGE_CASES = ["none", "all_live", "at_cap", "cap_plus_one",
+                      "cap_above_slots", "ovf_few"]
+
+
+def sparse_slots(rows, frac, seed):
+    """(rows, 16) int32 slots as the cascade leaves them: each slot live
+    with probability frac, holding a start of its row's 128 (row * 128 +
+    a column), -1 where empty."""
+    rng = np.random.default_rng(seed)
+    live = rng.random((rows, 16)) < frac
+    vals = (np.arange(rows, dtype=np.int64)[:, None] * 128
+            + rng.integers(0, 128, (rows, 16)))
+    return np.where(live, vals, -1).astype(np.int32)
+
+
+def compact_edge_case(name, device):
+    """(slots (R, 16) int32, ovf 0-d int32, cap) of one of
+    COMPACT_EDGE_CASES, on device."""
+    ovf, cap = 0, 1024
+    if name == "none":
+        slots = sparse_slots(3000, 0.0, seed=1)
+    elif name == "all_live":
+        slots, cap = sparse_slots(3000, 1.0, seed=2), 1 << 16
+    elif name in ("at_cap", "cap_plus_one"):
+        slots = sparse_slots(3000, 0.05, seed=3)
+        cap = int((slots >= 0).sum()) - (name == "cap_plus_one")
+    elif name == "cap_above_slots":
+        slots = sparse_slots(5, 0.5, seed=4)
+    elif name == "ovf_few":
+        slots, ovf = sparse_slots(3000, 0.001, seed=5), 1
+    else:
+        raise ValueError(f"no compaction case {name!r}")
+    return (torch.from_numpy(slots).to(device),
+            torch.tensor(ovf, dtype=torch.int32, device=device), cap)

@@ -12,12 +12,23 @@ tpu_smatcher/ops/pallas_filter.py:
                                      views the slot and cascade kernels
                                      fuse on the TPU
 
+and one kernel replaces no TPU kernel, the cascade's compaction (XLA code
+on the TPU, tpu_smatcher/ops/fast.py:compact_valrows):
+
+  compact_rows  csrc/compact.cu      ops/fast.compact_valrows on the
+                                     cascade's (R, 16) slots
+
 A wrapper given a CUDA tensor launches its kernel (or raises); given a CPU
 tensor it runs the plain version, which has the same signature and the same
 outputs bit for bit.  LAUNCHES counts kernel launches per TPU kernel
 replaced (the guarded exact count apart from the unguarded one; the named
 engines' stage chain, ops/cuda_engines.stages, counts here too), so a run
-can show that its main path went through the kernels.
+can show that its main path went through the kernels.  EPILOGUE_LAUNCHES
+counts compact_rows' calls on the card (two launches each) under the
+function it replaces, apart from LAUNCHES, whose sum bench_torch/trace.py
+and chip_smoke.py hold against a profile's device events of the TPU
+kernels' counterparts (their __global__ names; the compaction's,
+compact_rows_count_kernel and compact_rows_kernel, are not among them).
 """
 
 from __future__ import annotations
@@ -40,6 +51,8 @@ SUB_BLOCK = 128 * 128
 BLOCK_SLOTS = 16
 #: longest pattern the kernels take (MAX_FAST_M of the JAX fast path)
 MAX_KERNEL_M = 4097
+#: slot rows per tile of csrc/compact.cu (512 threads x 8 16-byte loads)
+COMPACT_TILE_ROWS = 1024
 #: starts per piece of the plain versions (bounds their temporaries; a
 #: multiple of ROW and SUB_BLOCK so pieces keep row and sub-block boundaries)
 PLAIN_PIECE = 1 << 24
@@ -48,6 +61,9 @@ PLAIN_PIECE = 1 << 24
 LAUNCHES = {"exact_count": 0, "exact_count_guard": 0, "exact_mask": 0,
             "cascade": 0, "filter_mask": 0, "filter_slots": 0,
             "words_view": 0, "stages": 0, "stages_flat": 0}
+#: calls on the card of the wrappers that replace no TPU kernel, by the
+#: function each replaces
+EPILOGUE_LAUNCHES = {"compact_valrows": 0}
 
 
 def _check(text: torch.Tensor, tables: torch.Tensor, tables_ndim: int):
@@ -438,3 +454,63 @@ def words_view_plain(text: torch.Tensor, nw: int) -> torch.Tensor:
     buf = torch.zeros(nw * 4, dtype=torch.uint8, device=text.device)
     buf[:min(n, nw * 4)] = text[:nw * 4]
     return buf.view(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# kernel 5: the cascade's compaction (replaces no TPU kernel)
+# ---------------------------------------------------------------------------
+
+def _check_rows(slots, ovf, cap):
+    if (slots.dtype != torch.int32 or slots.dim() != 2
+            or slots.shape[1] != ROW_SLOTS):
+        raise TypeError(f"slots must be (R, {ROW_SLOTS}) int32, got "
+                        f"{slots.dtype} {tuple(slots.shape)}")
+    if ovf.dtype != torch.int32 or ovf.dim() != 0:
+        raise TypeError(f"ovf must be 0-d int32, got {ovf.dtype} "
+                        f"{tuple(ovf.shape)}")
+    if ovf.device != slots.device:
+        raise ValueError(f"slots on {slots.device}, ovf on {ovf.device}")
+    if not slots.is_contiguous():
+        raise ValueError("slots must be contiguous")
+    if slots.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {slots.device}")
+    if cap < 0:
+        raise ValueError(f"need cap >= 0, got {cap}")
+
+
+def compact_rows(slots: torch.Tensor, ovf: torch.Tensor, *, cap: int):
+    """The cascade's compaction: ops/fast.compact_valrows of its (R, 16)
+    int32 slots, with its row-overflow flag ovf (0-d int32) OR-ed into the
+    overflow.  Returns (idxs (cap,) int64, the slot values >= 0 in
+    row-major order, densely packed, then -1; overflow 0-d int32, more
+    than cap candidates or ovf; n_cand 0-d int64, the true total).  On the
+    card, two launches of csrc/compact.cu (per-tile counts, then each tile
+    ranks and writes its survivors), no host sync."""
+    _check_rows(slots, ovf, cap)
+    if slots.device.type == "cpu":
+        return compact_rows_plain(slots, ovf, cap=cap)
+    if slots.data_ptr() % 16:
+        raise ValueError("slots must be 16-byte aligned")
+    rows = int(slots.shape[0])
+    n_tiles = max(1, cdiv(rows, COMPACT_TILE_ROWS))
+    counts = torch.empty((n_tiles,), dtype=torch.int32, device=slots.device)
+    idxs = torch.empty((cap,), dtype=torch.int64, device=slots.device)
+    n_cand = torch.empty((), dtype=torch.int64, device=slots.device)
+    overflow = torch.empty((), dtype=torch.int32, device=slots.device)
+    lib, dev, stream = _launch_args(slots)
+    rc = lib.tsm_compact_rows(slots.data_ptr(), rows, ovf.data_ptr(),
+                              counts.data_ptr(), n_tiles, idxs.data_ptr(),
+                              cap, n_cand.data_ptr(), overflow.data_ptr(),
+                              dev, stream)
+    _raise_on(rc, "compact_rows")
+    EPILOGUE_LAUNCHES["compact_valrows"] += 1
+    return idxs, overflow, n_cand
+
+
+def compact_rows_plain(slots: torch.Tensor, ovf: torch.Tensor, *, cap: int):
+    """Plain torch version of compact_rows (any device): compact_valrows,
+    which stays with the other compactions in ops/fast.py, its overflow
+    OR-ed with ovf."""
+    from tpu_smatcher_torch.ops.fast import compact_valrows
+    idxs, o, n_cand = compact_valrows(slots, cap=cap)
+    return idxs, (o | (ovf != 0)).to(torch.int32), n_cand

@@ -6,13 +6,15 @@ Port of tpu_smatcher/ops/fast.py.  Two tiers, as in the JAX package:
     bitmap; one kernel (cuda_filter.exact_count) counts the hits.
   - fingerprint tier: FastScanner._pick_path routes a scan by the JAX
     package's cost model to one of three forms, each a filter kernel whose
-    candidates are compacted (torch ops, no host sync) and verified exactly
-    against the fingerprint-bucketed patterns (_verify_matched) over the
-    text's word view (cuda_filter.words_view):
+    candidates are compacted (no host sync: the cascade's by a kernel on
+    the card, the others by torch ops) and verified exactly against the
+    fingerprint-bucketed patterns (_verify_matched) over the text's word
+    view (cuda_filter.words_view):
       slot     cuda_filter.filter_slots: 16 candidates + the true count
                per 16,384-start sub-block -> compact_slots
       cascade  cuda_filter.cascade: two-phase filter, 16 survivors per
-               128-start row -> compact_valrows
+               128-start row -> compact_valrows (on the card the
+               cuda_filter.compact_rows kernel)
       mask     cuda_filter.filter_mask: the per-start mask -> compact_mask
 
 Tables are built on the host with numpy exactly as the JAX package builds
@@ -561,19 +563,24 @@ def verify_text(ft: FastTables, text: torch.Tensor, idxs) -> torch.Tensor:
 
 
 def count_from_slots(ft: FastTables, text, slots, ovf, *, cap: int):
-    """The cascade's epilogue: compact its (R, 16) slots, verify the
-    candidates.  Returns (count 0-d int32, overflow 0-d int32)."""
-    with span("tsm.compact", device=slots):
-        idxs, o, _ = compact_valrows(slots, cap=cap)
-    c = verify_text(ft, text, idxs)
-    return c.to(torch.int32), (o | (ovf != 0)).to(torch.int32)
+    """The cascade's epilogue: compact its (R, 16) slots
+    (cuda_filter.compact_rows: a kernel on the card, compact_valrows on
+    the CPU), verify the candidates.  Returns (count 0-d int32, overflow
+    0-d int32: more than cap candidates, or a row past its slots)."""
+    with span("tsm.compact", device=slots) as sp:
+        idxs, o, _ = cuda_filter.compact_rows(slots, ovf, cap=cap)
+        if sp:
+            sp.attrs["path"] = "cuda" if slots.is_cuda else "torch"
+    return verify_text(ft, text, idxs).to(torch.int32), o
 
 
 def count_from_sub_blocks(ft: FastTables, text, pos, counts, *, cap: int):
     """The slot route's epilogue: compact filter_slots' output, verify the
     candidates.  Returns (count 0-d int32, overflow 0-d int32)."""
-    with span("tsm.compact", device=pos):
+    with span("tsm.compact", device=pos) as sp:
         idxs, o, _ = compact_slots(pos, counts, slots=BLOCK_SLOTS, cap=cap)
+        if sp:
+            sp.attrs["path"] = "torch"
     return verify_text(ft, text, idxs).to(torch.int32), o.to(torch.int32)
 
 
@@ -935,10 +942,12 @@ class FastScanner:
         with span("tsm.filter"):
             mask2d = cuda_filter.filter_mask(piece, ft.bitmaps[:k], m=ft.m,
                                              cd=ft.cd(k))
-        with span("tsm.compact", device=mask2d):
+        with span("tsm.compact", device=mask2d) as sp:
             idxs, o, _ = compact_mask(mask2d,
                                       caprows=min(caprows, mask2d.shape[0]),
                                       cap=self.cap, row_slots=row_slots)
+            if sp:
+                sp.attrs["path"] = "torch"
         if not matched:
             return verify_text(ft, piece, idxs), o
         with span("tsm.verify", device=piece):
