@@ -162,8 +162,8 @@ W2_TIMEOUT_S = 600
 #: the tools' phases: the kernels each must launch (others may, as the
 #: router decides), and the sweep's timing window, seconds (the tool's
 #: default is 0.35)
-CONFORMANCE_KERNELS = ("cascade", "filter_mask", "filter_slots",
-                       "words_view", "stages", "stages_flat")
+CONFORMANCE_KERNELS = ("cascade", "compact_valrows", "filter_mask",
+                       "filter_slots", "words_view", "stages", "stages_flat")
 SOAK_KERNELS = ("exact_count", "exact_mask", "filter_mask", "filter_slots",
                 "words_view", "stages", "stages_flat")
 SWEEP_KERNELS = ("exact_count", "words_view", "stages", "stages_flat")
@@ -182,8 +182,9 @@ CASCADE_RUN, CASCADE_TILE = 16, 4096
 #: filter.cu's run and tile (one 16,384-start sub-block)
 FILTER_RUN, FILTER_TILE = 32, 16384
 
-#: the ported kernels, by their cuda_filter.LAUNCHES name: (the wrapper's
-#: module, the wrapper, source, the TPU kernel it replaces)
+#: the ported kernels, by their launch counter's name (counters()): (the
+#: wrapper's module, the wrapper, source, the TPU kernel it replaces, or
+#: for compact_valrows the XLA code that ran there)
 _EXACT_CU = "tpu_smatcher_torch/csrc/exact_count.cu"
 _STAGES_CU = "tpu_smatcher_torch/csrc/stages.cu"
 _PF = "tpu_smatcher/ops/pallas_filter.py"
@@ -204,19 +205,18 @@ KERNELS = {
                    f"{_PF}:1011"),
     "stages": (_CE, "stages", _STAGES_CU, f"{_PE}:115"),
     "stages_flat": (_CE, "stages", _STAGES_CU, f"{_PE}:213"),
-}
-#: the kernels that replace no TPU kernel (XLA code there), by the function
-#: each replaces: (module, wrapper, source, what it replaces)
-EPILOGUE_KERNELS = {
     "compact_valrows": (_CF, "compact_rows",
                         "tpu_smatcher_torch/csrc/compact.cu",
-                        "tpu_smatcher/ops/fast.py:compact_valrows (XLA)"),
+                        "none: XLA code on the TPU, "
+                        "tpu_smatcher/ops/fast.py:compact_valrows"),
 }
-WRAPPERS = sorted({(mod, w) for mod, w, _, _ in (*KERNELS.values(),
-                                                 *EPILOGUE_KERNELS.values())})
-#: compact_rows calls timed back to back: one enqueues in less time than
-#: the kernel runs, so the device never waits for the host
-COMPACT_LOOP = 20
+WRAPPERS = sorted({(mod, w) for mod, w, _, _ in KERNELS.values()})
+#: bytes written before each cold_ms call, to evict the 50 MB L2 (a count
+#: compacts slots the cascade wrote ~1.5 ms before, L2 long since turned
+#: over), and cycles of device spin ahead of the write (~1 ms), so the host
+#: has enqueued the write, the events and the call when the device gets there
+L2_FLUSH_BYTES = 256 * MiB
+COLD_SPIN_CYCLES = 2_000_000
 
 #: the engines phase: (name, m) of the eleven engines, each on bench.py's
 #: p=10k pattern set of its m
@@ -302,6 +302,28 @@ def cuda_ms(fn, reps=REPS):
     return statistics.median(times)
 
 
+def cold_ms(fn, reps=REPS):
+    """Median ms of one fn() call on a cold L2, by CUDA events around the
+    call alone: each rep spins the device, writes L2_FLUSH_BYTES, then
+    runs fn; fn's result is read back (synchronised) inside each rep."""
+    import torch
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(COLD_SPIN_CYCLES)
+        flush.fill_(1)
+        a.record()
+        out = fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+        del out
+    return statistics.median(times)
+
+
 def device_info():
     import torch
     smi = subprocess.run(
@@ -332,25 +354,31 @@ def plain_kernels():
             setattr(mod, w, fn)
 
 
+def counters():
+    """Every kernel's launch count: cuda_filter.LAUNCHES, and
+    EPILOGUE_LAUNCHES for the kernel that replaces no TPU kernel."""
+    from tpu_smatcher_torch.ops import cuda_filter as cf
+    return {**cf.LAUNCHES, **cf.EPILOGUE_LAUNCHES}
+
+
 def reset_launches():
     from tpu_smatcher_torch.ops import cuda_filter as cf
-    for k in cf.LAUNCHES:
-        cf.LAUNCHES[k] = 0
+    for launches in (cf.LAUNCHES, cf.EPILOGUE_LAUNCHES):
+        for k in launches:
+            launches[k] = 0
 
 
 def launched(fn):
     """(fn(), the launches fn made, by kernel)."""
-    from tpu_smatcher_torch.ops import cuda_filter as cf
-    before = dict(cf.LAUNCHES)
+    before = counters()
     out = fn()
-    return out, {k: v - before[k] for k, v in cf.LAUNCHES.items()}
+    return out, {k: v - before[k] for k, v in counters().items()}
 
 
 def read_launches(path, kernels, total):
     """The counts of the path just driven; each of its kernels must have
     launched.  Adds them to total."""
-    from tpu_smatcher_torch.ops import cuda_filter as cf
-    got = dict(cf.LAUNCHES)
+    got = counters()
     log(f"  {path} launches: {got}")
     for k in kernels:
         assert got[k] > 0, f"{path}: {k} never launched"
@@ -363,25 +391,28 @@ def sized_launches():
     """Every kernel wrapper behind a spy that adds the length of the text
     of each launch it makes to the first yielded dict, under the LAUNCHES
     name the launch counted, so launches can be weighted by the size they
-    ran at, counts in the second the launches on a text whose address is
-    not 16-byte aligned (a view at an offset), and adds in the third the
-    length of each stage-chain launch's text under its chain_kind."""
+    ran at (compact_rows: the starts its slot rows cover), counts in the
+    second the launches on a text whose address is not 16-byte aligned (a
+    view at an offset), and adds in the third the length of each
+    stage-chain launch's text under its chain_kind."""
     import collections
     import importlib
     from tpu_smatcher_torch.ops import cuda_engines as ce
     from tpu_smatcher_torch.ops import cuda_filter as cf
-    scanned = {k: 0 for k in cf.LAUNCHES}
-    unaligned = {k: 0 for k in cf.LAUNCHES}
+    scanned = {k: 0 for k in counters()}
+    unaligned = {k: 0 for k in counters()}
     chains = collections.Counter()
     saved = [(importlib.import_module(mod), w) for mod, w in WRAPPERS]
     saved = [(mod, w, getattr(mod, w)) for mod, w in saved]
 
     def spy(real, stage_chain):
         def call(text, *args, **kw):
-            before = dict(cf.LAUNCHES)
+            before = counters()
             out = real(text, *args, **kw)
-            for k, v in cf.LAUNCHES.items():
-                scanned[k] += (v - before[k]) * int(text.numel())
+            size = int(text.shape[0]) * cf.ROW if text.dim() == 2 \
+                else int(text.numel())
+            for k, v in counters().items():
+                scanned[k] += (v - before[k]) * size
                 unaligned[k] += (v - before[k]) * (text.data_ptr() % 16 != 0)
             if stage_chain:
                 chains[chain_kind(args[0], kw)] += int(text.numel())
@@ -479,7 +510,7 @@ class Checks:
     """Kernel-vs-plain comparisons; every one must be exact."""
 
     def __init__(self):
-        self.max_err = {k: 0 for k in (*KERNELS, *EPILOGUE_KERNELS)}
+        self.max_err = {k: 0 for k in KERNELS}
 
     def _err(self, name, err, label):
         self.max_err[name] = max(self.max_err[name], err)
@@ -995,7 +1026,8 @@ def tiers_path(text, tdev, total):
         engines.append((name, eng))
         codes[name] = pats.codes
         checks.append((name, pats, anchor, gate, full))
-    read_launches("tiers", ("exact_count", "cascade", "words_view"), total)
+    read_launches("tiers", ("exact_count", "cascade", "compact_valrows",
+                            "words_view"), total)
     for (name, pats, anchor, gate, full), (_, eng) in zip(checks, engines):
         gates[name] = np.flatnonzero(datagen.match_starts(text[:N_GATE],
                                                           pats))
@@ -1345,7 +1377,7 @@ def engines_path(text, tdev, codes, fp_pos, dense_pats, dense, total):
         portable[name] = make_engine(name, pats[8], fastpath=False).count(
             tdev[:N_GATE])
     secs = time.perf_counter() - t0
-    got = dict(cf.LAUNCHES)
+    got = counters()
     log(f"engine portable scans (fastpath=False) on the 4 MiB prefix: "
         f"{portable} (gate {len(gate)}), {secs:.1f} s, launches {got}")
     assert set(portable.values()) == {len(gate)}, "portable scans"
@@ -1451,14 +1483,16 @@ def mixed_path(text, tdev, codes, gates, total):
         subs = [s.count(tdev) for s in eng.scanners]
         many = eng.scan_many([tdev, tdev[:N_GATE]])
         read_launches("mixed count", ("exact_count", "cascade",
-                                      "words_view"), total)
+                                      "compact_valrows", "words_view"),
+                      total)
         reset_launches()
         files = {}
         for chunk in (1 << 28, 64 * MiB):
             files[chunk], secs[f"count_file, chunk {chunk // MiB} MiB"] = \
                 timed(lambda: eng.count_file(bare, chunk=chunk))
         read_launches("mixed count_file", ("exact_count", "cascade",
-                                           "words_view"), total)
+                                           "compact_valrows", "words_view"),
+                      total)
         log(f"mixed (lengths {mx.lengths}, p={mx.p_size}): count {count} "
             f"(anchor {want}), groups {subs} (anchors "
             f"{[anchors[m] for m in MIXED_M]}), scan_many of the corpus and "
@@ -1521,7 +1555,8 @@ def mixed_path(text, tdev, codes, gates, total):
                 f"{anchors[m]}){extra}")
             assert c == anchors[m], f"checkpoint {name}{m}: {c}"
         read_launches("mixed checkpoints", ("exact_count", "cascade",
-                                            "stages", "words_view"), total)
+                                            "compact_valrows", "stages",
+                                            "words_view"), total)
 
     reset_launches()
     r = ts.scan(tdev, pats[8], device="cuda")
@@ -1578,7 +1613,8 @@ def distributed_path(tdev, codes, gates, fpos, named, slot_pats, dense,
             dc.count(tdev), dc.count_async(tdev).result(),
             dc.scan_many([tdev, tdev[:N_GATE]])))
     read_launches("distributed world 1 tiers", (
-        "exact_count_guard", "cascade", "words_view"), total)
+        "exact_count_guard", "cascade", "compact_valrows", "words_view"),
+        total)
     for name, m, p, anchor in TIERS:
         kern = "exact_count_guard" if name == "exact" else "cascade"
         assert own[name][kern] > 0, f"distributed {name}: no {kern} launch"
@@ -1756,7 +1792,8 @@ def world2_path(text, tdev, codes, total):
             f"world 2 rank {r} plants {res['plants']} != {plants}"
         for k, v in res["launches"].items():
             total[k] += v
-        for k in ("exact_count_guard", "cascade", "stages", "words_view"):
+        for k in ("exact_count_guard", "cascade", "compact_valrows",
+                  "stages", "words_view"):
             assert res["launches"][k] > 0, f"world 2 rank {r}: {k}"
     log(f"world 2: boundary plants at offsets {list(W2_OFFSETS)}: counts "
         f"{plants} (single device) on both ranks; launches per rank "
@@ -1805,7 +1842,7 @@ def rank_main(argv):
             s[a - lo:b - lo] = p0[a - g:b - g]
         out["plants"][str(d)] = fast[8].count(s, n=n)
         del s
-    out["launches"] = dict(cf.LAUNCHES)
+    out["launches"] = counters()
     out["ms"] = {str(m): cuda_ms(lambda: dc.count_async(shard, n=n).result())
                  for m, dc in fast.items()}
     log(f"counts {out['fast']} {out['engines']}; ms/scan {out['ms']}; "
@@ -1960,7 +1997,8 @@ def native_path(text, tdev, engines, codes, total):
     fp = dict(engines)["fp"]
     mpos, mids = fp.matches(tdev)
     read_launches("native (make_fast counts and matches)",
-                  ("exact_count", "cascade", "filter_mask", "words_view"),
+                  ("exact_count", "cascade", "compact_valrows",
+                   "filter_mask", "words_view"),
                   total)
     for name, m, p, anchor in TIERS:
         got, t_full = timed(lambda: native.count_cpu_native(text,
@@ -2287,16 +2325,16 @@ def kernel_time(card, ck, label, name, kern, plain, bnd, library=None):
 
 def compact_time(card, ck, label, slots, ovf, cap):
     """compact_rows held against its plain version on the cascade's slots
-    (exactly), then both timed, the kernel over COMPACT_LOOP calls back to
-    back; the bound reads the slots once and writes the outputs once."""
+    (exactly), then both timed, the kernel one call at a time on a cold L2
+    (cold_ms), as a count runs it; the bound reads the slots once and writes
+    the outputs once."""
     from tpu_smatcher_torch.ops import cuda_filter as cf
     kern = functools.partial(cf.compact_rows, slots, ovf, cap=cap)
     plain = functools.partial(cf.compact_rows_plain, slots, ovf, cap=cap)
     ck.same("compact_valrows", kern(), plain(), f"{label} (main-path inputs)")
-    ms = cuda_ms(lambda: [kern() for _ in range(COMPACT_LOOP)]) / COMPACT_LOOP
-    p_ms = cuda_ms(plain)
+    ms, p_ms = cold_ms(kern, reps=4 * REPS), cuda_ms(plain)
     bnd = bound(slots.numel() * 4 + 4 + cap * 8 + 8 + 4, 0)
-    log(f"[{card}] {label}: compact_valrows kernel {ms:.4f} ms "
+    log(f"[{card}] {label}: compact_valrows kernel {ms:.4f} ms, L2 cold "
         f"({int(slots.shape[0])} rows, cap {cap}) vs plain {p_ms:.3f} ms, "
         f"bound {bnd[0]:.4f} ms by {bnd[1]} ({bnd[0] / ms:.1%})")
     return {"ms": ms, "plain_ms": p_ms, "bound_ms": bnd[0],
@@ -2730,12 +2768,6 @@ def main() -> int:
     kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
                 "launches": total[k], "max_abs_err": ck.max_err[k],
                 **per_kernel[k]} for k, (_, _, src, rep) in KERNELS.items()]
-    # the epilogue kernels' calls over the whole run, checks included
-    from tpu_smatcher_torch.ops import cuda_filter as cf
-    kernels += [{"name": k, "route": "cuda", "source": src, "replaces": rep,
-                 "launches": cf.EPILOGUE_LAUNCHES[k],
-                 "max_abs_err": ck.max_err[k], **per_kernel[k]}
-                for k, (_, _, src, rep) in EPILOGUE_KERNELS.items()]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -330,8 +330,8 @@ def test_compact_rows_on_cpu_runs_compact_valrows(monkeypatch, ovf):
         calls.append(cap)
         return real(vals2d, cap=cap)
 
-    real = tfast.compact_valrows
-    monkeypatch.setattr(tfast, "compact_valrows", spy)
+    real = cf.compact_valrows
+    monkeypatch.setattr(cf, "compact_valrows", spy)
     before = dict(cf.EPILOGUE_LAUNCHES)
     for cap in (64, 4096):                  # 64 < n_cand: overflow
         want_i, want_o, want_n = real(slots, cap=cap)

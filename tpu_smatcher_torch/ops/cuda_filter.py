@@ -15,8 +15,8 @@ tpu_smatcher/ops/pallas_filter.py:
 and one kernel replaces no TPU kernel, the cascade's compaction (XLA code
 on the TPU, tpu_smatcher/ops/fast.py:compact_valrows):
 
-  compact_rows  csrc/compact.cu      ops/fast.compact_valrows on the
-                                     cascade's (R, 16) slots
+  compact_rows  csrc/compact.cu      ops/compaction.compact_valrows on
+                                     the cascade's (R, 16) slots
 
 A wrapper given a CUDA tensor launches its kernel (or raises); given a CPU
 tensor it runs the plain version, which has the same signature and the same
@@ -38,6 +38,7 @@ import ctypes
 import torch
 
 from tpu_smatcher_torch.ops.common import bits_per_char, cdiv
+from tpu_smatcher_torch.ops.compaction import compact_valrows
 from tpu_smatcher_torch.ops.keys import FP_MULTS, fp_keys, max_keys, wid_keys
 from tpu_smatcher_torch.ops.lookup import bitmap_test
 
@@ -479,9 +480,9 @@ def _check_rows(slots, ovf, cap):
 
 
 def compact_rows(slots: torch.Tensor, ovf: torch.Tensor, *, cap: int):
-    """The cascade's compaction: ops/fast.compact_valrows of its (R, 16)
-    int32 slots, with its row-overflow flag ovf (0-d int32) OR-ed into the
-    overflow.  Returns (idxs (cap,) int64, the slot values >= 0 in
+    """The cascade's compaction: ops/compaction.compact_valrows of its
+    (R, 16) int32 slots, with its row-overflow flag ovf (0-d int32) OR-ed
+    into the overflow.  Returns (idxs (cap,) int64, the slot values >= 0 in
     row-major order, densely packed, then -1; overflow 0-d int32, more
     than cap candidates or ovf; n_cand 0-d int64, the true total).  On the
     card, two launches of csrc/compact.cu (per-tile counts, then each tile
@@ -509,8 +510,6 @@ def compact_rows(slots: torch.Tensor, ovf: torch.Tensor, *, cap: int):
 
 def compact_rows_plain(slots: torch.Tensor, ovf: torch.Tensor, *, cap: int):
     """Plain torch version of compact_rows (any device): compact_valrows,
-    which stays with the other compactions in ops/fast.py, its overflow
-    OR-ed with ovf."""
-    from tpu_smatcher_torch.ops.fast import compact_valrows
+    its overflow OR-ed with ovf."""
     idxs, o, n_cand = compact_valrows(slots, cap=cap)
     return idxs, (o | (ovf != 0)).to(torch.int32), n_cand

@@ -52,6 +52,9 @@ from tpu_smatcher_torch.ops import cuda_filter
 from tpu_smatcher_torch.ops.common import (bits_per_char, cdiv, check_count32,
                                            stream_count_file,
                                            stream_positions_file)
+# compact_valrows stays importable here, beside the JAX package's
+from tpu_smatcher_torch.ops.compaction import (  # noqa: F401
+    _pack, _take, compact_valrows, nonzero_scatter)
 from tpu_smatcher_torch.ops.keys import FP_MULTS, fp_keys, wid_keys
 from tpu_smatcher_torch.ops.lookup import bitmap_test, pack_bitmap, pack_rows
 from tpu_smatcher_torch.utils.profiling import span
@@ -338,50 +341,9 @@ def build_fast(patterns: np.ndarray, sigma: int, *,
 
 
 # ---------------------------------------------------------------------------
-# compaction and verification (torch ops, no host sync)
+# compaction (helpers in ops/compaction.py) and verification (torch ops,
+# no host sync)
 # ---------------------------------------------------------------------------
-
-def nonzero_scatter(mask: torch.Tensor, size: int, fill: int) -> torch.Tensor:
-    """Indices of set elements, densely packed, then `fill`: (size,) int64.
-
-    cumsum + scatter, so no host sync (torch.nonzero waits for the device).
-    torch has no drop mode: unset elements, and set ones beyond `size`,
-    scatter into a trash tail [size, size + n) at distinct indices (one
-    shared trash index would serialise millions of writes), sliced off."""
-    n = mask.shape[0]
-    iota = torch.arange(n, device=mask.device)
-    rank = torch.cumsum(mask, 0) - 1
-    dst = torch.where(mask & (rank < size), rank, size + iota)
-    out = torch.full((size + n,), fill, dtype=torch.int64, device=mask.device)
-    out.scatter_(0, dst, iota)
-    return out[:size]
-
-
-def _take(vals: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
-    """vals[sel] where sel < len(vals), else -1 (torch gathers do not
-    clamp; sel comes from nonzero_scatter with fill len(vals))."""
-    return torch.cat([vals, vals.new_full((1,), -1)])[sel]
-
-
-def _pack(vals2d: torch.Tensor, cap: int) -> torch.Tensor:
-    """The positions of a position-valued matrix (-1 = empty) in row-major
-    order, densely packed into (cap,) int64, then -1."""
-    flat = vals2d.reshape(-1).to(torch.int64)
-    return _take(flat, nonzero_scatter(flat >= 0, cap, flat.shape[0]))
-
-
-def compact_valrows(vals2d: torch.Tensor, *, cap: int):
-    """Compaction of a position-valued matrix (-1 = empty), e.g. the
-    cascade's (R, 16) slots.  Returns (idxs (cap,) int64 positions densely
-    packed in row-major order then -1, overflow (n_cand > cap) 0-d bool,
-    n_cand 0-d int64 — the true candidate total).
-
-    The JAX version also flags a packed row holding more than its row
-    budget, an artefact of the TPU's 8:1 lane repack; here the per-row
-    budget is the cascade's own ovf flag."""
-    n_cand = (vals2d >= 0).sum()
-    return _pack(vals2d, cap), n_cand > cap, n_cand
-
 
 def compact_slots(pos: torch.Tensor, counts: torch.Tensor, *,
                   slots: int = BLOCK_SLOTS, cap: int = DEFAULT_CAP):
