@@ -27,6 +27,10 @@
    run, mask row and tile, views at every address mod 16, dirty runs, m =
    3 to 4097 (sog at 34), 32 fp stages of 2^17 and 2^18 bits, chains
    outside the engines' and launches above 48 KB around a smaller one;
+   verify_count_live at m = 5, 8, 13 and 32, eb 0 and above, with and
+   without fp2's slot choice, on no candidate, a -1 tail, exactly cap and
+   more than cap candidates, a match at the last window start, on views
+   at 0 to 3 bytes in;
 4. drives the main paths through make_fast / FastScanner, each with the
    launch counters set to 0 just before it and read just after:
    - bench.py's five tiers on its 256 MiB DNA corpus (seed 7): each count
@@ -98,9 +102,12 @@
    groups' make_fast tiers; the world-1 distributed count beside
    make_fast's at each tier, and the world-2 ranks' own times), each
    kernel against its plain version
-   and its bound, and words_view against one PyTorch call; the cascade's
-   compaction (compact_rows, replacing no TPU kernel) on the fp tier's
-   cascade output, 2^21 rows, against compact_valrows and its bytes bound.
+   and its bound, and words_view against one PyTorch call; the cascade
+   route's epilogue (replacing no TPU kernel) on the fp tier's cascade
+   output, 2^21 rows: the compaction (compact_rows) against
+   compact_valrows, and the verify of its ~28k candidates
+   (verify_count_live) against verify_count over the word view, each
+   against its bytes bound, one call at a time on a cold L2.
    Each kernel is
    first held against its plain version, exactly, on the inputs the main
    paths gave it (the cascade at every bench tier's stages, filter_mask
@@ -162,8 +169,9 @@ W2_TIMEOUT_S = 600
 #: the tools' phases: the kernels each must launch (others may, as the
 #: router decides), and the sweep's timing window, seconds (the tool's
 #: default is 0.35)
-CONFORMANCE_KERNELS = ("cascade", "compact_valrows", "filter_mask",
-                       "filter_slots", "words_view", "stages", "stages_flat")
+CONFORMANCE_KERNELS = ("cascade", "compact_valrows", "verify",
+                       "filter_mask", "filter_slots", "words_view", "stages",
+                       "stages_flat")
 SOAK_KERNELS = ("exact_count", "exact_mask", "filter_mask", "filter_slots",
                 "words_view", "stages", "stages_flat")
 SWEEP_KERNELS = ("exact_count", "words_view", "stages", "stages_flat")
@@ -184,7 +192,7 @@ FILTER_RUN, FILTER_TILE = 32, 16384
 
 #: the ported kernels, by their launch counter's name (counters()): (the
 #: wrapper's module, the wrapper, source, the TPU kernel it replaces, or
-#: for compact_valrows the XLA code that ran there)
+#: for compact_valrows and verify the XLA code that ran there)
 _EXACT_CU = "tpu_smatcher_torch/csrc/exact_count.cu"
 _STAGES_CU = "tpu_smatcher_torch/csrc/stages.cu"
 _PF = "tpu_smatcher/ops/pallas_filter.py"
@@ -209,11 +217,14 @@ KERNELS = {
                         "tpu_smatcher_torch/csrc/compact.cu",
                         "none: XLA code on the TPU, "
                         "tpu_smatcher/ops/fast.py:compact_valrows"),
+    "verify": (_CF, "verify_count_live", "tpu_smatcher_torch/csrc/verify.cu",
+               "none: XLA code on the TPU, "
+               "tpu_smatcher/ops/fast.py:verify_chunked"),
 }
 WRAPPERS = sorted({(mod, w) for mod, w, _, _ in KERNELS.values()})
 #: bytes written before each cold_ms call, to evict the 50 MB L2 (a count
 #: compacts slots the cascade wrote ~1.5 ms before, L2 long since turned
-#: over), and cycles of device spin ahead of the write (~1 ms), so the host
+#: over, and verifies against tables last read a count before), and cycles of device spin ahead of the write (~1 ms), so the host
 #: has enqueued the write, the events and the call when the device gets there
 L2_FLUSH_BYTES = 256 * MiB
 COLD_SPIN_CYCLES = 2_000_000
@@ -356,7 +367,7 @@ def plain_kernels():
 
 def counters():
     """Every kernel's launch count: cuda_filter.LAUNCHES, and
-    EPILOGUE_LAUNCHES for the kernel that replaces no TPU kernel."""
+    EPILOGUE_LAUNCHES for the kernels that replace no TPU kernel."""
     from tpu_smatcher_torch.ops import cuda_filter as cf
     return {**cf.LAUNCHES, **cf.EPILOGUE_LAUNCHES}
 
@@ -377,11 +388,14 @@ def launched(fn):
 
 def read_launches(path, kernels, total):
     """The counts of the path just driven; each of its kernels must have
-    launched.  Adds them to total."""
+    launched, and each cascade launch its compaction and its verify.  Adds
+    them to total."""
     got = counters()
     log(f"  {path} launches: {got}")
     for k in kernels:
         assert got[k] > 0, f"{path}: {k} never launched"
+    assert got["cascade"] == got["compact_valrows"] == got["verify"], \
+        f"{path}: cascade launches without their epilogue kernels"
     for k, v in got.items():
         total[k] += v
 
@@ -878,8 +892,32 @@ def kernel_checks():
     ck.filters("match-dense", dense_text, dense_pats, 32768)
     assert crowded > 0, "no sub-block held more than 16 candidates"
     filter_edge_checks(ck)
+    verify_edge_checks(ck)
     stage_checks(ck, case)
     return ck
+
+
+def verify_edge_checks(ck):
+    """verify_count_live against its plain version on kernel_cases' verify
+    edge cases (m = 5, 8, 13, 32; eb 0 and above; fp2's slot choice and
+    every slot; n_cand 0, below, at and above cap; a match at the last
+    window start), on the text and on views 1 to 3 bytes in."""
+    import torch
+    from tpu_smatcher_torch import kernel_cases as kc
+    from tpu_smatcher_torch.ops import cuda_filter as cf
+    log("kernel vs plain (verify_count_live: word ends, buckets, slot "
+        "choice, candidate counts, addresses, tolerance 0):")
+    for case in kc.VERIFY_EDGE_CASES:
+        text, idxs, n_cand, ft, truth = kc.verify_edge_case(*case, "cuda")
+        for off in range(4):
+            ids = idxs if off == 0 else torch.where(idxs >= off, idxs - off,
+                                                    -1)
+            args = (text[off:], ids, n_cand, ft)
+            got = cf.verify_count_live(*args)
+            ck.same("verify", got, cf.verify_count_live_plain(*args),
+                    f"m={case[0]} slot_ok={case[1]} eb={ft.eb} {case[3]} "
+                    f"offset {off}")
+            assert off or int(got) == truth, f"verify {case}: {int(got)}"
 
 
 def exact_edge_checks(ck):
@@ -1027,7 +1065,7 @@ def tiers_path(text, tdev, total):
         codes[name] = pats.codes
         checks.append((name, pats, anchor, gate, full))
     read_launches("tiers", ("exact_count", "cascade", "compact_valrows",
-                            "words_view"), total)
+                            "verify"), total)
     for (name, pats, anchor, gate, full), (_, eng) in zip(checks, engines):
         gates[name] = np.flatnonzero(datagen.match_starts(text[:N_GATE],
                                                           pats))
@@ -1483,15 +1521,14 @@ def mixed_path(text, tdev, codes, gates, total):
         subs = [s.count(tdev) for s in eng.scanners]
         many = eng.scan_many([tdev, tdev[:N_GATE]])
         read_launches("mixed count", ("exact_count", "cascade",
-                                      "compact_valrows", "words_view"),
-                      total)
+                                      "compact_valrows", "verify"), total)
         reset_launches()
         files = {}
         for chunk in (1 << 28, 64 * MiB):
             files[chunk], secs[f"count_file, chunk {chunk // MiB} MiB"] = \
                 timed(lambda: eng.count_file(bare, chunk=chunk))
         read_launches("mixed count_file", ("exact_count", "cascade",
-                                           "compact_valrows", "words_view"),
+                                           "compact_valrows", "verify"),
                       total)
         log(f"mixed (lengths {mx.lengths}, p={mx.p_size}): count {count} "
             f"(anchor {want}), groups {subs} (anchors "
@@ -1555,8 +1592,8 @@ def mixed_path(text, tdev, codes, gates, total):
                 f"{anchors[m]}){extra}")
             assert c == anchors[m], f"checkpoint {name}{m}: {c}"
         read_launches("mixed checkpoints", ("exact_count", "cascade",
-                                            "compact_valrows", "stages",
-                                            "words_view"), total)
+                                            "compact_valrows", "verify",
+                                            "stages", "words_view"), total)
 
     reset_launches()
     r = ts.scan(tdev, pats[8], device="cuda")
@@ -1613,8 +1650,7 @@ def distributed_path(tdev, codes, gates, fpos, named, slot_pats, dense,
             dc.count(tdev), dc.count_async(tdev).result(),
             dc.scan_many([tdev, tdev[:N_GATE]])))
     read_launches("distributed world 1 tiers", (
-        "exact_count_guard", "cascade", "compact_valrows", "words_view"),
-        total)
+        "exact_count_guard", "cascade", "compact_valrows", "verify"), total)
     for name, m, p, anchor in TIERS:
         kern = "exact_count_guard" if name == "exact" else "cascade"
         assert own[name][kern] > 0, f"distributed {name}: no {kern} launch"
@@ -1793,7 +1829,7 @@ def world2_path(text, tdev, codes, total):
         for k, v in res["launches"].items():
             total[k] += v
         for k in ("exact_count_guard", "cascade", "compact_valrows",
-                  "stages", "words_view"):
+                  "verify", "stages", "words_view"):
             assert res["launches"][k] > 0, f"world 2 rank {r}: {k}"
     log(f"world 2: boundary plants at offsets {list(W2_OFFSETS)}: counts "
         f"{plants} (single device) on both ranks; launches per rank "
@@ -1997,7 +2033,7 @@ def native_path(text, tdev, engines, codes, total):
     fp = dict(engines)["fp"]
     mpos, mids = fp.matches(tdev)
     read_launches("native (make_fast counts and matches)",
-                  ("exact_count", "cascade", "compact_valrows",
+                  ("exact_count", "cascade", "compact_valrows", "verify",
                    "filter_mask", "words_view"),
                   total)
     for name, m, p, anchor in TIERS:
@@ -2341,6 +2377,29 @@ def compact_time(card, ck, label, slots, ovf, cap):
             "bound_by": bnd[1], "library_ms": None}
 
 
+def verify_time(card, ck, label, text, idxs, n_cand, ft):
+    """verify_count_live held against its plain version on the cascade
+    route's compacted candidates (exactly), then both timed, the kernel one
+    call at a time on a cold L2 (cold_ms), as a count runs it; the bound
+    reads each live candidate's start, its window's m bytes, its bucket's
+    fp2 words and id and its pattern's words once, and writes the count."""
+    from tpu_smatcher_torch.ops import cuda_filter as cf
+    kern = functools.partial(cf.verify_count_live, text, idxs, n_cand, ft)
+    plain = functools.partial(cf.verify_count_live_plain, text, idxs, n_cand,
+                              ft)
+    ck.same("verify", kern(), plain(), f"{label} (main-path inputs)")
+    ms, p_ms = cold_ms(kern, reps=4 * REPS), cuda_ms(plain)
+    live = min(int(n_cand), int(idxs.shape[0]))
+    bnd = bound(live * (8 + ft.m + 4 * ft.lmax + 4 + 4 * ft.words) + 8 + 4,
+                live * 3 * 2 * ft.m)
+    log(f"[{card}] {label}: verify kernel {ms:.4f} ms, L2 cold ({live} "
+        f"candidates, cap {int(idxs.shape[0])}, m={ft.m}) vs plain "
+        f"{p_ms:.3f} ms, bound {bnd[0]:.4f} ms by {bnd[1]} "
+        f"({bnd[0] / ms:.1%})")
+    return {"ms": ms, "plain_ms": p_ms, "bound_ms": bnd[0],
+            "bound_by": bnd[1], "library_ms": None}
+
+
 def positions_timings(card, ck, tdev, ext, engines):
     """Profiles of the positions phase's paths, and exact_mask and the
     guarded exact_count on its inputs."""
@@ -2438,6 +2497,9 @@ def timings(card, ck, tdev, engines, slot_eng, dense, sat):
             card, ck, f"tier {name}", "cascade", kern, plain, bnd)
         per_kernel["compact_valrows"] = compact_time(
             card, ck, f"tier {name}", *kern(), eng.cap)
+        idxs, _, n_cand = cf.compact_rows(*kern(), cap=eng.cap)
+        per_kernel["verify"] = verify_time(card, ck, f"tier {name}", tdev,
+                                           idxs, n_cand, ft)
 
     ft = slot_eng.ft
     path_times(card, "slot32", slot_eng, tdev, async_scan)

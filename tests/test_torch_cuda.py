@@ -210,11 +210,73 @@ def test_compact_kernel_on_the_flagship_cascade_output(cuda):
     assert o == 1 and n_cand >= 1 << 18
 
 
+def _check_verify(text, idxs, n_cand, ft):
+    """verify_count_live on the card against its plain version (verify_count
+    over the word view), exactly: one call counted in EPILOGUE_LAUNCHES,
+    none in LAUNCHES.  Returns the count."""
+    before, launches = dict(cf.EPILOGUE_LAUNCHES), dict(cf.LAUNCHES)
+    got = cf.verify_count_live(text, idxs, n_cand, ft)
+    torch.cuda.synchronize()
+    assert cf.EPILOGUE_LAUNCHES["verify"] == before["verify"] + 1
+    assert cf.LAUNCHES == launches
+    want = cf.verify_count_live_plain(text, idxs, n_cand, ft)
+    assert got.dtype == want.dtype == torch.int32 and got.dim() == 0
+    assert int(got) == int(want)
+    return int(got)
+
+
+@pytest.mark.parametrize("m,slot_ok,wide,kind", kc.VERIFY_EDGE_CASES)
+def test_verify_kernel_at_edges_matches_plain(cuda, m, slot_ok, wide, kind):
+    """A partial and a whole last word, eb = 0 and above, fp2's slot
+    choice and every slot tried, n_cand 0, below cap with a -1 tail, equal
+    to cap and above it, a match at the last window start; and the same on
+    the text at odd addresses (views 1 to 3 bytes in, the candidates
+    shifted with it)."""
+    text, idxs, n_cand, ft, truth = kc.verify_edge_case(m, slot_ok, wide,
+                                                        kind, cuda)
+    assert _check_verify(text, idxs, n_cand, ft) == truth
+    for off in (1, 2, 3):
+        t = text[off:]
+        assert t.data_ptr() % 4
+        _check_verify(t, torch.where(idxs >= off, idxs - off, -1), n_cand,
+                      ft)
+
+
+def test_verify_kernel_on_the_flagship_candidates(cuda):
+    """The benchmark's flagship shapes (256 MiB of DNA, m=32 p=10k): count()
+    equals fast_count_core, the plain tiled scan; the kernel equals its
+    plain version on the compacted candidates of the cascade, and again
+    with pattern 0 planted every 32 bytes across 8 MiB, past the cap."""
+    text, pats = make_case(4, 32, 10_000, 1 << 28, seed=32)
+    eng = make_fast(pats, device=cuda)
+    ft = eng.ft
+    n = len(text)
+    path, k1, kt = eng._pick_path(n, tfast.stages_for(ft, n, eng.cap))
+    assert path == "cascade"
+    t = torch.from_numpy(text).to(cuda)
+    before = dict(cf.LAUNCHES)
+    count = eng.count(t)
+    assert cf.LAUNCHES["words_view"] == before["words_view"]
+    c, o = tfast.fast_count_core(t, ft)
+    assert count == int(c) and not int(o)
+    args = dict(m=32, k1=k1, cd=ft.cd(kt))
+    idxs, o, n_cand = cf.compact_rows(*cf.cascade(t, ft.bitmaps[:kt], **args),
+                                      cap=eng.cap)
+    assert 0 < int(n_cand) < eng.cap and int(o) == 0
+    assert _check_verify(t, idxs, n_cand, ft) == count
+    plant = torch.from_numpy(pats.codes[0].astype(np.uint8)).to(cuda)
+    t[1 << 24:(1 << 24) + (1 << 23)].view(-1, 32)[:] = plant
+    idxs, o, n_cand = cf.compact_rows(*cf.cascade(t, ft.bitmaps[:kt], **args),
+                                      cap=eng.cap)
+    assert int(n_cand) > eng.cap and int(o) == 1
+    assert _check_verify(t, idxs, n_cand, ft) > 0
+
+
 def test_cascade_route_takes_the_compaction_kernel(cuda):
     """Counts on the cascade route equal the plain path's (the CPU scanner)
-    and the truth, each count one compaction kernel call counted apart
-    from LAUNCHES (which sees the cascade and the word view only), and the
-    tsm.compact spans say "cuda"."""
+    and the truth, each count one compaction and one verify kernel call
+    counted apart from LAUNCHES (which sees the cascade only: no word
+    view), and the tsm.compact spans say "cuda"."""
     from tpu_smatcher_torch.utils import profiling
     text, pats = wide_case(0.02)
     eng = tfast.FastScanner(tfast.build_fast(
@@ -237,11 +299,12 @@ def test_cascade_route_takes_the_compaction_kernel(cuda):
     finally:
         profiling.disable()
         profiling.clear()
-    assert cf.EPILOGUE_LAUNCHES["compact_valrows"] == \
-        before["compact_valrows"] + 3
+    assert {k: v - before[k] for k, v in cf.EPILOGUE_LAUNCHES.items()} == \
+        {"compact_valrows": 3, "verify": 3}
     assert {k: v - launches[k] for k, v in cf.LAUNCHES.items()
-            if v != launches[k]} == {"cascade": 3, "words_view": 3}
+            if v != launches[k]} == {"cascade": 3}
     assert spans["tsm.compact"]["paths"] == {"cuda": 3}
+    assert spans["tsm.verify"]["calls"] == 3
 
 
 def _filter_case(sigma, m, stage_bits):
@@ -282,20 +345,27 @@ def test_filter_kernels_match_plain(cuda, m, sigma, stage_bits):
 
 @pytest.mark.parametrize("sigma,m,p_size,n", CASES)
 def test_slice_on_the_card(cuda, sigma, m, p_size, n):
-    """make_fast on the card counts exactly through the routed kernel, and
-    the fingerprint routes verify over the words_view kernel."""
+    """make_fast on the card counts exactly through the routed kernel; the
+    slot and mask routes verify over the words_view kernel, the cascade
+    route through the verify kernel, with no word view."""
     text, pats = make_case(sigma, m, p_size, n, seed=3 * sigma + m)
     eng = make_fast(pats, device=cuda)
-    if eng.ft.exact:
+    path = "exact" if eng.ft.exact else \
+        eng._pick_path(n, tfast.stages_for(eng.ft, n, eng.cap))[0]
+    if path == "exact":
         names = ["exact_count"]
     else:
-        path = eng._pick_path(n, tfast.stages_for(eng.ft, n, eng.cap))[0]
-        names = [ROUTE_KERNEL[path], "words_view"]
-    before = dict(cf.LAUNCHES)
+        names = [ROUTE_KERNEL[path]] + \
+            ([] if path == "cascade" else ["words_view"])
+    before, epilogue = dict(cf.LAUNCHES), dict(cf.EPILOGUE_LAUNCHES)
     assert eng.count(torch.from_numpy(text).to(cuda)) == \
         datagen.count_matches(text, pats)
     for name in names:
         assert cf.LAUNCHES[name] == before[name] + 1, name
+    assert cf.EPILOGUE_LAUNCHES["verify"] == \
+        epilogue["verify"] + (path == "cascade")
+    if path == "cascade":
+        assert cf.LAUNCHES["words_view"] == before["words_view"]
     assert eng.fallback_scans == 0
 
 

@@ -20,6 +20,7 @@ from tpu_smatcher_torch.core import datagen
 from tpu_smatcher_torch.ops import cuda_filter as cf
 from tpu_smatcher_torch.ops import fast as tfast
 from tpu_smatcher_torch.ops import keys as tkeys
+from tpu_smatcher_torch.ops import verify as tverify
 from tpu_smatcher_torch.ops.common import bits_per_char
 
 from torch_cases import dense_case, make_case, wide_case
@@ -252,7 +253,7 @@ def test_verify_matched_matches_jax(slot_ok):
     want = np.asarray(jfast._verify_matched(
         jnp.asarray(tw.numpy()), jnp.asarray(idxs), jft.bucket_ids,
         jft.packed, jft.bucket_fp2, **kw))
-    got = tfast._verify_matched(
+    got = tverify._verify_matched(
         tw, torch.from_numpy(idxs.astype(np.int64)), tft.bucket_ids,
         tft.packed, tft.bucket_fp2, **kw)
     assert np.array_equal(got.numpy(), want)
@@ -366,6 +367,57 @@ def test_compact_rows_rejects_what_the_kernel_does_not_take(bad):
         cap, err = -1, ValueError
     with pytest.raises(err):
         cf.compact_rows(slots, ovf, cap=cap)
+
+
+@pytest.mark.parametrize("m,slot_ok,wide,kind", kc.VERIFY_EDGE_CASES)
+def test_verify_count_live_plain_matches_verify_count(m, slot_ok, wide,
+                                                      kind):
+    """verify_count_live on the CPU (its plain path) equals verify_count
+    over the word view and the true matches among the live candidates, at
+    the edges csrc/verify.cu must keep: a partial and a whole last word,
+    eb = 0 and above, fp2's slot choice and every slot tried, n_cand 0,
+    below cap with a -1 tail, equal to cap and above it, a match at the
+    last window start; and counts no launch."""
+    text, idxs, n_cand, ft, truth = kc.verify_edge_case(m, slot_ok, wide,
+                                                        kind, "cpu")
+    n = int(text.shape[0])
+    assert (ft.eb > 0) == wide and ft.slot_ok == slot_ok
+    assert ft.words == -(-m // 4)
+    cap = int(idxs.shape[0])
+    assert {"none": int(n_cand) == 0, "tail": 0 < int(n_cand) < cap,
+            "at_cap": int(n_cand) == cap,
+            "above_cap": int(n_cand) > cap}[kind]
+    if kind in ("tail", "at_cap"):
+        assert int(idxs[int(n_cand) - 1]) == n - m     # the last start
+    tw = cf.words_view(text, tverify.words_len(n, ft.words))
+    want = tverify.verify_count(tw, idxs, ft, n_starts=n - m + 1)
+    before = dict(cf.EPILOGUE_LAUNCHES)
+    got = cf.verify_count_live(text, idxs, n_cand, ft)
+    assert got.dtype == torch.int32 and got.dim() == 0
+    assert int(got) == int(want) == truth
+    assert (truth > 0) == (kind != "none")
+    assert cf.EPILOGUE_LAUNCHES == before
+
+
+@pytest.mark.parametrize("bad", ["text_dtype", "idxs_dtype", "n_cand_rank",
+                                 "exact", "device_mix"])
+def test_verify_count_live_rejects_what_the_kernel_does_not_take(bad):
+    text, idxs, n_cand, ft, _ = kc.verify_edge_case(8, True, False, "tail",
+                                                    "cpu")
+    err = TypeError
+    if bad == "text_dtype":
+        text = text.to(torch.int32)
+    elif bad == "idxs_dtype":
+        idxs = idxs.to(torch.int32)
+    elif bad == "n_cand_rank":
+        n_cand = n_cand.reshape(1)
+    elif bad == "exact":
+        ft, err = tfast.build_fast(np.zeros((1, 4), np.uint8), 4,
+                                   device="cpu"), ValueError
+    else:
+        n_cand, err = n_cand.to("meta"), ValueError
+    with pytest.raises(err):
+        cf.verify_count_live(text, idxs, n_cand, ft)
 
 
 #: (sigma, m) of the k-stage filter cases: DNA, a protein-sized alphabet at

@@ -23,6 +23,7 @@ from tpu_smatcher_torch.core.patterns import PatternSet
 from tpu_smatcher_torch.ops import cuda_filter as cf
 from tpu_smatcher_torch.ops import fast as tfast
 from tpu_smatcher_torch.ops import keys as tkeys
+from tpu_smatcher_torch.ops import verify as tverify
 
 from torch_cases import CASES, jax_pats, make_case, wide_case
 
@@ -142,7 +143,7 @@ def test_verify_attr_matches_jax(slot_ok):
     want_r, want_p = jfast.verify_attr_at(
         jnp.asarray(tw.numpy()), jnp.asarray(idxs), jft.bucket_ids,
         jft.packed, jft.bucket_fp2, **kw)
-    got_r, got_p = tfast._verify_matched(
+    got_r, got_p = tverify._verify_matched(
         tw, torch.from_numpy(idxs.astype(np.int64)), tft.bucket_ids,
         tft.packed, tft.bucket_fp2, return_pid=True, **kw)
     assert np.array_equal(got_r.numpy(), np.asarray(want_r))

@@ -61,6 +61,11 @@ SOURCES = {
     #  device, stream)
     "compact.cu": {"tsm_compact_rows": [_vp, _i64, _vp, _vp, _i64, _vp,
                                         _i64, _vp, _vp, _i32, _vp]},
+    # (text, n, m, idxs, cap, n_cand, bucket_ids, bucket_fp2, lmax, eb,
+    #  slot_ok, packed, words, count, device, stream)
+    "verify.cu": {"tsm_verify_live": [_vp, _i64, _i32, _vp, _i64, _vp, _vp,
+                                      _vp, _i32, _i32, _i32, _vp, _i32, _vp,
+                                      _i32, _vp]},
     # (text, n, m, sigma, guard, mode, desc, tables, n_stages, cd, out0,
     #  out1, n_out, device, stream)
     "stages.cu": {"tsm_stages": [_vp, _i64, _i32, _i32, _i32, _i32, _vp, _vp,

@@ -1,5 +1,5 @@
-"""Time this checkout's main-path filter kernels against other checkouts'
-on one card, in one process, interleaved, on bench.py's 256 MiB DNA corpus
+"""Time this checkout's main-path kernels against other checkouts' on one
+card, in one process, interleaved, on bench.py's 256 MiB DNA corpus
 (text seed 7; pattern seed 8 at m=8 and 8+m otherwise):
 
   exact_count   the unguarded exact count (tsm_exact_count), m=8 p=10k
@@ -25,6 +25,10 @@ on one card, in one process, interleaved, on bench.py's 256 MiB DNA corpus
                 count), and ac, wm and sog32 at m=32 (stage 0 + the fpset
                 stages: count_async's slots mode and count()'s mask mode),
                 on bench.py's p=10k sets
+  verify        the cascade route's verify (tsm_verify_live) on the
+                compacted candidates of the fp tier (m=32 p=10k), made by
+                the plain cascade and compaction; a checkout without
+                csrc/verify.cu is left out of this kernel's comparison
 
     python3 -m tpu_smatcher_torch.ab_cascade OTHER_CHECKOUT [...] [--reps N]
         [--kernels NAME ...]
@@ -56,7 +60,8 @@ KERNELS = {"exact_count": ("exact_count.cu", "tsm_exact_count"),
            "cascade": ("cascade.cu", "tsm_cascade"),
            "filter_slots": ("filter.cu", "tsm_filter_slots"),
            "filter_mask": ("filter.cu", "tsm_filter_mask"),
-           "stages": ("stages.cu", "tsm_stages")}
+           "stages": ("stages.cu", "tsm_stages"),
+           "verify": ("verify.cu", "tsm_verify_live")}
 #: bench.py's tiers: (name, m, p)
 TIERS = (("exact", 8, 10_000), ("fp16", 16, 10_000), ("fp", 32, 10_000),
          ("fp32_p30k", 32, 30_000), ("fp32_p100k", 32, 100_000))
@@ -134,6 +139,36 @@ def launcher(text, eng):
         assert rc == 0, f"launch failed: cudaError {rc}"
         return slots, ovf
     return "cascade", f"m={m} k1={k1} kt={kt}", launch
+
+
+def verify_launcher(text, eng):
+    """(label, launch(fn) -> outputs) of tsm_verify_live on the cascade
+    route's compacted candidates of text, which the plain cascade and
+    compaction make (so this checkout's _build libraries stay out of the
+    process)."""
+    import torch
+    from tpu_smatcher_torch.ops import cuda_filter as cf
+    from tpu_smatcher_torch.ops.fast import stages_for
+    ft = eng.ft
+    n, m = int(text.shape[0]), ft.m
+    route, k1, kt = eng._pick_path(n, stages_for(ft, n, eng.cap))
+    assert route == "cascade", route
+    slots, ovf = cf.cascade_plain(text, ft.bitmaps[:kt], m=m, k1=k1,
+                                  cd=ft.cd(kt))
+    idxs, _, n_cand = cf.compact_rows_plain(slots, ovf, cap=eng.cap)
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    dev = torch.cuda.current_device()
+
+    def launch(fn):
+        count = torch.empty((), dtype=torch.int32, device="cuda")
+        rc = fn(text.data_ptr(), n, m, idxs.data_ptr(), int(idxs.shape[0]),
+                n_cand.data_ptr(), ft.bucket_ids.data_ptr(),
+                ft.bucket_fp2.data_ptr(), ft.lmax, ft.eb, int(ft.slot_ok),
+                ft.packed.data_ptr(), ft.words, count.data_ptr(), dev,
+                stream)
+        assert rc == 0, f"launch failed: cudaError {rc}"
+        return (count,)
+    return f"m={m} n_cand={int(n_cand)} cap={eng.cap}", launch
 
 
 def exact_launchers(t, eng):
@@ -380,7 +415,8 @@ def main(argv=None) -> int:
     print(f"card: {card}", flush=True)
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     roots = [("this", here)] + [(o, o) for o in args.others]
-    builds = {k: [(label, build(root, label, k)) for label, root in roots]
+    builds = {k: [(label, build(root, label, k)) for label, root in roots
+                  if os.path.exists(os.path.join(_csrc(root), KERNELS[k][0]))]
               for k in args.kernels}
 
     n = 1 << 28
@@ -412,6 +448,13 @@ def main(argv=None) -> int:
         shape, launch = filter_launcher(tc, ft, k, kernel)
         compare(builds[kernel], f"cell {cell}", f"{kernel} {shape}", launch,
                 args.reps)
+    if "verify" in builds:
+        pats = datagen.generate_patterns(text, 10_000, 32, ab,
+                                         frac_present=0.5, seed=40)
+        shape, launch = verify_launcher(
+            t, FastScanner(build_fast(pats.codes, 4, device="cuda")))
+        compare(builds["verify"], "tier fp (p=10k)", f"verify {shape}",
+                launch, args.reps)
     for name, m in STAGE_CELLS if "stages" in builds else ():
         for call in stage_calls(text, t, name, m):
             shape, launch = stages_launcher(*call)

@@ -11,9 +11,15 @@ launches above 48 KB of shared memory around a smaller one — and the
 compaction's cases of csrc/compact.cu (the cascade's slots with no
 candidate, every slot live, exactly cap candidates and one more, a cap
 above the slot count, the cascade's row overflow with few candidates;
-slots of any row count).  Every input is
+slots of any row count) and of csrc/verify.cu (compacted candidates at
+m = 5 to 32, with and without the extra bucket bits and fp2's slot choice,
+no candidate, a -1 tail, exactly cap and more than cap, a match at the
+last window start, bytes up to 255).  Every input is
 made with numpy from a seed; holding a kernel against its plain version is
 the caller's part.  Nothing here builds or launches a kernel."""
+
+import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -22,7 +28,7 @@ from .core import datagen
 from .core.alphabet import Alphabet
 from .engines import make_engine
 from .ops.cuda_engines import EngineFastPath
-from .ops.fast import STAGE_CD
+from .ops.fast import STAGE_CD, build_fast
 
 #: stages.cu's run (consecutive starts per thread) and tile (starts per
 #: block iteration, one slot sub-block); exact_count.cu's
@@ -295,3 +301,61 @@ def compact_edge_case(name, device):
         raise ValueError(f"no compaction case {name!r}")
     return (torch.from_numpy(slots).to(device),
             torch.tensor(ovf, dtype=torch.int32, device=device), cap)
+
+
+#: the verify kernel's cases (cuda_filter.verify_count_live): (m, slot_ok,
+#: wide, kind).  m = 5 and 13 end in a partial word and hold bytes up to
+#: 255, 8 and 32 end in a whole one; wide tables hold p = 12,000 patterns
+#: (some 9,800 distinct), so eb > 0 bits of fp1 extend the bucket key
+#: (eb = 0 at p = 200); slot_ok=False tries every slot of a bucket.
+#: kind: n_cand 0 (every entry -1), a -1 tail past n_cand, n_cand == cap,
+#: n_cand > cap (the first cap candidates kept).
+VERIFY_KINDS = ("none", "tail", "at_cap", "above_cap")
+VERIFY_EDGE_CASES = [(m, slot_ok, wide, kind) for m in (5, 8, 13, 32)
+                     for slot_ok in (True, False) for wide in (False, True)
+                     for kind in VERIFY_KINDS]
+
+
+@functools.lru_cache(maxsize=None)
+def _verify_inputs(m, wide, device):
+    """(text (n,) uint8, candidates, truth, tables) of the verify cases of
+    (m, wide): 6,007 bytes over 256 symbols at odd m (bytes up to 255 in
+    the fingerprints and the words) and 20 at even m (the fingerprint tier
+    at every m), one pattern planted at the last window start; the
+    candidates in compaction order (ascending): every match start, 600
+    random starts and the last start; truth: which of them match."""
+    sigma = 256 if m % 2 else 20
+    ab = Alphabet.of_size(sigma)
+    n, p = 6007, 12_000 if wide else 200
+    text = datagen.generate_text(n, ab, seed=m)
+    pats = datagen.generate_patterns(text, p, m, ab, frac_present=0.5,
+                                     seed=m + 1)
+    text[n - m:] = pats.codes[0]
+    starts = datagen.match_starts(text, pats)
+    rng = np.random.default_rng(m + 2)
+    cands = np.unique(np.concatenate([np.flatnonzero(starts),
+                                      rng.integers(0, n - m + 1, 600),
+                                      [n - m]]))
+    ft = build_fast(pats.codes, sigma, device=device)
+    return torch.from_numpy(text).to(device), cands, starts[cands], ft
+
+
+def verify_edge_case(m, slot_ok, wide, kind, device):
+    """(text, idxs (cap,) int64, n_cand 0-d int64, tables, truth) of one of
+    VERIFY_EDGE_CASES on device, as compact_rows leaves the candidates;
+    truth: the matches among the first min(n_cand, cap) of them."""
+    text, cands, match, ft = _verify_inputs(m, wide, str(device))
+    if ft.slot_ok != slot_ok:
+        if not ft.slot_ok:
+            raise ValueError(f"m={m} wide={wide}: tables not slot_ok")
+        ft = dataclasses.replace(ft, slot_ok=False)
+    n_live = len(cands)
+    cap = {"none": 1024, "tail": n_live + 300, "at_cap": n_live,
+           "above_cap": n_live - 7}[kind]
+    n_cand = 0 if kind == "none" else n_live
+    kept = min(n_cand, cap)
+    idxs = np.full(cap, -1, np.int64)
+    idxs[:kept] = cands[:kept]
+    return (text, torch.from_numpy(idxs).to(device),
+            torch.tensor(n_cand, dtype=torch.int64, device=device), ft,
+            int(match[:kept].sum()))

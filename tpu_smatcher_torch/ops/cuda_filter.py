@@ -12,11 +12,14 @@ tpu_smatcher/ops/pallas_filter.py:
                                      views the slot and cascade kernels
                                      fuse on the TPU
 
-and one kernel replaces no TPU kernel, the cascade's compaction (XLA code
-on the TPU, tpu_smatcher/ops/fast.py:compact_valrows):
+and two kernels replace no TPU kernel, the cascade route's epilogue (XLA
+code on the TPU, tpu_smatcher/ops/fast.py:compact_valrows and
+verify_chunked):
 
-  compact_rows  csrc/compact.cu      ops/compaction.compact_valrows on
-                                     the cascade's (R, 16) slots
+  compact_rows       csrc/compact.cu  ops/compaction.compact_valrows on
+                                      the cascade's (R, 16) slots
+  verify_count_live  csrc/verify.cu   ops/verify.verify_count over the
+                                      word view, on compact_rows' output
 
 A wrapper given a CUDA tensor launches its kernel (or raises); given a CPU
 tensor it runs the plain version, which has the same signature and the same
@@ -24,11 +27,12 @@ outputs bit for bit.  LAUNCHES counts kernel launches per TPU kernel
 replaced (the guarded exact count apart from the unguarded one; the named
 engines' stage chain, ops/cuda_engines.stages, counts here too), so a run
 can show that its main path went through the kernels.  EPILOGUE_LAUNCHES
-counts compact_rows' calls on the card (two launches each) under the
-function it replaces, apart from LAUNCHES, whose sum bench_torch/trace.py
-and chip_smoke.py hold against a profile's device events of the TPU
-kernels' counterparts (their __global__ names; the compaction's,
-compact_rows_count_kernel and compact_rows_kernel, are not among them).
+counts the epilogue wrappers' calls on the card under the function each
+replaces ("verify" for verify_count), apart from LAUNCHES, whose sum
+bench_torch/trace.py and chip_smoke.py hold against a profile's device
+events of the TPU kernels' counterparts (their __global__ names; the
+epilogue's, compact_rows_count_kernel, compact_rows_kernel and
+live_verify_kernel, are not among them).
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from tpu_smatcher_torch.ops.common import bits_per_char, cdiv
 from tpu_smatcher_torch.ops.compaction import compact_valrows
 from tpu_smatcher_torch.ops.keys import FP_MULTS, fp_keys, max_keys, wid_keys
 from tpu_smatcher_torch.ops.lookup import bitmap_test
+from tpu_smatcher_torch.ops.verify import verify_count, words_len
 
 #: starts per row of the cascade's compaction and of the filter mask, and
 #: survivors the cascade keeps per row
@@ -64,7 +69,7 @@ LAUNCHES = {"exact_count": 0, "exact_count_guard": 0, "exact_mask": 0,
             "words_view": 0, "stages": 0, "stages_flat": 0}
 #: calls on the card of the wrappers that replace no TPU kernel, by the
 #: function each replaces
-EPILOGUE_LAUNCHES = {"compact_valrows": 0}
+EPILOGUE_LAUNCHES = {"compact_valrows": 0, "verify": 0}
 
 
 def _check(text: torch.Tensor, tables: torch.Tensor, tables_ndim: int):
@@ -513,3 +518,74 @@ def compact_rows_plain(slots: torch.Tensor, ovf: torch.Tensor, *, cap: int):
     its overflow OR-ed with ovf."""
     idxs, o, n_cand = compact_valrows(slots, cap=cap)
     return idxs, (o | (ovf != 0)).to(torch.int32), n_cand
+
+
+# ---------------------------------------------------------------------------
+# kernel 6: the cascade route's verify (replaces no TPU kernel)
+# ---------------------------------------------------------------------------
+
+def _check_live(text, idxs, n_cand, ft):
+    if text.dtype != torch.uint8 or text.dim() != 1:
+        raise TypeError(f"text must be 1-D uint8, got {text.dtype} "
+                        f"{tuple(text.shape)}")
+    if idxs.dtype != torch.int64 or idxs.dim() != 1:
+        raise TypeError(f"idxs must be 1-D int64, got {idxs.dtype} "
+                        f"{tuple(idxs.shape)}")
+    if n_cand.dtype != torch.int64 or n_cand.dim() != 0:
+        raise TypeError(f"n_cand must be 0-d int64, got {n_cand.dtype} "
+                        f"{tuple(n_cand.shape)}")
+    if ft.exact:
+        raise ValueError("the exact tier has no verify")
+    ids, fp2, packed = ft.bucket_ids, ft.bucket_fp2, ft.packed
+    if not (ids.dtype == fp2.dtype == packed.dtype == torch.int32
+            and packed.dim() == 2 and packed.shape[1] == ft.words):
+        raise TypeError("bucket_ids, bucket_fp2 and packed (p, words) must "
+                        "be int32")
+    dev = text.device
+    if not (idxs.device == n_cand.device == ids.device == fp2.device
+            == packed.device == dev):
+        raise ValueError(f"text on {dev}, candidates or tables elsewhere")
+    if not (text.is_contiguous() and idxs.is_contiguous()
+            and ids.is_contiguous() and fp2.is_contiguous()
+            and packed.is_contiguous()):
+        raise ValueError("text, idxs and the tables must be contiguous")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    if not 1 <= ft.m <= MAX_KERNEL_M:
+        raise ValueError(f"need 1 <= m <= {MAX_KERNEL_M}; m={ft.m}")
+
+
+def verify_count_live(text: torch.Tensor, idxs: torch.Tensor,
+                      n_cand: torch.Tensor, ft) -> torch.Tensor:
+    """The cascade route's verify: how many of the first min(n_cand, cap)
+    candidate starts in idxs ((cap,) int64, -1 from n_cand on, as
+    compact_rows leaves them; n_cand 0-d int64, compact_rows' true total)
+    hold a pattern of ft (fast.FastTables, fingerprint tier), as a 0-d
+    int32 tensor.  On the card, a memset of the count and one launch of
+    csrc/verify.cu, which reads n_cand on the device and each window's
+    bytes from the uint8 text: no word view, no host sync, no thread for
+    the -1 tail.  On the CPU the plain version."""
+    _check_live(text, idxs, n_cand, ft)
+    if text.device.type == "cpu":
+        return verify_count_live_plain(text, idxs, n_cand, ft)
+    count = torch.empty((), dtype=torch.int32, device=text.device)
+    lib, dev, stream = _launch_args(text)
+    rc = lib.tsm_verify_live(
+        text.data_ptr(), int(text.shape[0]), ft.m, idxs.data_ptr(),
+        int(idxs.shape[0]), n_cand.data_ptr(), ft.bucket_ids.data_ptr(),
+        ft.bucket_fp2.data_ptr(), ft.lmax, ft.eb, int(ft.slot_ok),
+        ft.packed.data_ptr(), ft.words, count.data_ptr(), dev, stream)
+    _raise_on(rc, "verify_count_live")
+    EPILOGUE_LAUNCHES["verify"] += 1
+    return count
+
+
+def verify_count_live_plain(text: torch.Tensor, idxs: torch.Tensor,
+                            n_cand: torch.Tensor, ft) -> torch.Tensor:
+    """Plain torch version of verify_count_live (any device):
+    ops/verify.verify_count over the text's word view.  It verifies the
+    whole cap, so it does not read n_cand: the -1 entries count
+    nothing."""
+    n = int(text.shape[0])
+    tw = words_view_plain(text, words_len(n, ft.words))
+    return verify_count(tw, idxs, ft, n_starts=n - ft.m + 1).to(torch.int32)
