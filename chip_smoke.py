@@ -37,8 +37,9 @@
      equals the 4 MiB ground-truth gate on the prefix, the JAX package's
      logged full-corpus count (BENCH_r05.json) and the plain versions'
      count, on the cascade route with no retry;
-   - slot32: DNA m=32 p=1000, the slot route; the count equals the gate,
-     the plain versions' count and the cascade route's count;
+   - slot32: DNA m=32 p=1000 at 4096-bit stages, the slot route; the count
+     equals the gate, the plain versions' count and the cascade route's
+     count;
    - dense32: the slot32 text with pattern 0 planted every 256 bytes over
      2 MiB; the scanner adapts through the sync ladder within 6 retries,
      then counts on the dense mask pass without retrying, exact throughout;
@@ -151,8 +152,20 @@ MiB = 1 << 20
 #: the slot32 / dense32 / saturated cells: m=32, bench.py's pattern seed
 M_CELL = 32
 PAT_SEED = 8 + M_CELL
+#: the stage width of the slot32 / dense32 / saturated cells: the slot
+#: route's (the default width gives slot32's set to the cascade, whose row
+#: slots hold dense32's plants without an overflow)
+SLOT_BITS = 4096
 #: dense32's plants of pattern 0: every 256 bytes over [1 MiB, 3 MiB)
 PLANTS = range(MiB, 3 * MiB, 256)
+#: the engines' overflow cell: the windows of a random TANDEM_UNIT-byte
+#: unit at its first TANDEM_PATS starts join the slot32 set, and the unit
+#: repeats back to back over [TANDEM_AT, 2 * TANDEM_AT) of a TANDEM_N-byte
+#: prefix: ~72 matches a 128-start row, more than the engine's chain and
+#: the cascade keep a row, within the row-dense pass's 128 (a scan of at
+#: most 2^17 starts)
+TANDEM_UNIT, TANDEM_PATS, TANDEM_SEED = 71, 40, 71
+TANDEM_N, TANDEM_AT = 1 << 17, 1 << 15
 MAX_RETRIES = 6
 #: the mixed phase: the lengths of bench.py's p=10k sets it unites, and the
 #: seed of the shuffle of its FASTA pattern file
@@ -1083,16 +1096,22 @@ def tiers_path(text, tdev, total):
     return engines, codes, gates
 
 
+def slot_scanner(pats, device="cuda"):
+    """A FastScanner over pats' tables at SLOT_BITS-bit stages."""
+    from tpu_smatcher_torch.ops.fast import FastScanner, build_fast
+    return FastScanner(build_fast(pats.codes, pats.sigma,
+                                  stage_bits=SLOT_BITS, device=device))
+
+
 def slot32_path(text, tdev, total):
-    """DNA m=32 p=1000 with default tables: the slot route."""
-    from tpu_smatcher_torch import make_fast
+    """DNA m=32 p=1000 at SLOT_BITS-bit stages: the slot route."""
     from tpu_smatcher_torch.core import datagen
     from tpu_smatcher_torch.core.alphabet import Alphabet
 
     pats = datagen.generate_patterns(text, 1000, M_CELL, Alphabet.dna(),
                                      frac_present=0.5, seed=PAT_SEED)
     reset_launches()
-    eng = make_fast(pats)
+    eng = slot_scanner(pats)
     gate = eng.count(tdev[:N_GATE])
     full = eng.count(tdev)
     read_launches("slot32", ("filter_slots", "words_view"), total)
@@ -1117,7 +1136,6 @@ def dense32_path(text, tdev, pats, gate0, full0, total):
     retry through the sync ladder; it adapts within MAX_RETRIES and then
     counts on the dense mask pass without retrying."""
     import torch
-    from tpu_smatcher_torch import make_fast
     from tpu_smatcher_torch.core import datagen
 
     p0 = pats.codes[0]
@@ -1132,7 +1150,7 @@ def dense32_path(text, tdev, pats, gate0, full0, total):
     # window over one: the full count moves by the prefix's change
     truth = full0 + gate_truth - gate0
     reset_launches()
-    eng = make_fast(pats)
+    eng = slot_scanner(pats)
     counts, scans = [], []
     for _ in range(MAX_RETRIES + 1):
         before = eng.fallback_scans
@@ -1142,7 +1160,7 @@ def dense32_path(text, tdev, pats, gate0, full0, total):
             break
     retries = eng.fallback_scans
     steady = [eng.count(t2) for _ in range(3)]
-    gate = make_fast(pats).count(t2[:N_GATE])
+    gate = slot_scanner(pats).count(t2[:N_GATE])
     read_launches("dense32", ("filter_slots", "filter_mask", "words_view"),
                   total)
     plain, o = plain_count(eng, t2)
@@ -1174,7 +1192,7 @@ def saturated_path(text, tdev, total):
                                      frac_present=0.5, seed=PAT_SEED)
     t3 = tdev[:N_GATE]
     reset_launches()
-    eng = FastScanner(build_fast(pats.codes, 4, stage_bits=4096,
+    eng = FastScanner(build_fast(pats.codes, 4, stage_bits=SLOT_BITS,
                                  device="cuda"))
     got = eng.count(t3)
     read_launches("saturated", ("filter_mask", "words_view"), total)
@@ -1303,12 +1321,13 @@ def bench_pattern_sets(codes):
             for name, m, p, _ in TIERS if p == 10_000}
 
 
-def engines_path(text, tdev, codes, fp_pos, dense_pats, dense, total):
+def engines_path(text, tdev, codes, fp_pos, dense_pats, total):
     """The seven named engines through make_engine(..., device="cuda") on
     bench.py's corpus and pattern sets: the eleven counts (count and
     count_async, no retry) against the BENCH_r05.json anchors, the guarded
-    core, positions, scan_many and count_repeat_async, dense32 through the
-    wm engine, and each family's portable scan on the 4 MiB prefix.  Each
+    core, positions, scan_many and count_repeat_async, a tandem repeat
+    through the wm engine, and each family's portable scan on the 4 MiB
+    prefix.  Each
     group is driven with the launch counters at 0, then checked."""
     import numpy as np
     import torch
@@ -1379,12 +1398,24 @@ def engines_path(text, tdev, codes, fp_pos, dense_pats, dense, total):
     assert many == row_want, "engine scan_many"
     assert rep3 == 3 * anchors[32], f"engine count_repeat_async {rep3}"
 
-    # dense32 through the wm engine: the first async scan overflows and
-    # retries exactly, then scans are pinned to the fallback FastScanner,
-    # whose ladder adapts within MAX_RETRIES
-    _, t2, d_truth = dense
+    # the tandem repeat through the wm engine: the first async scan
+    # overflows the chain's row slots and retries exactly, then scans are
+    # pinned to the fallback FastScanner, whose cascade overflows its row
+    # slots until its ladder adapts within MAX_RETRIES (at the default
+    # stage width dense32's plants, ~1 a row, overflow neither)
+    from tpu_smatcher_torch.core.patterns import PatternSet
+    unit = np.random.default_rng(TANDEM_SEED).integers(
+        0, 4, TANDEM_UNIT).astype(np.uint8)
+    t_pats = PatternSet(np.concatenate([
+        dense_pats.codes,
+        np.lib.stride_tricks.sliding_window_view(unit, M_CELL)[:TANDEM_PATS]
+    ]), dense_pats.alphabet)
+    host = text[:TANDEM_N].copy()
+    host[TANDEM_AT:2 * TANDEM_AT] = np.resize(unit, TANDEM_AT)
+    t_truth = datagen.count_matches(host, t_pats)
+    t5 = torch.from_numpy(host).cuda()
     reset_launches()
-    eng = make_engine("wm", dense_pats)
+    eng = make_engine("wm", t_pats)
     fp = eng.fast_path
 
     def fb_retries():
@@ -1393,20 +1424,23 @@ def engines_path(text, tdev, codes, fp_pos, dense_pats, dense, total):
     counts, after = [], []
     for _ in range(MAX_RETRIES + 2):
         before = (fp._use_fallback_async, fb_retries())
-        counts.append(eng.count_async(t2).result())
+        counts.append(eng.count_async(t5).result())
         after.append(fb_retries())
         if (fp._use_fallback_async, fb_retries()) == before:
             break
-    steady = [eng.count_async(t2).result() for _ in range(3)]
-    read_launches("engines dense32", ("stages", "words_view"), total)
-    log(f"engine wm on dense32: counts {counts} then {steady} (truth "
-        f"{d_truth}), pinned to the fallback {fp._use_fallback_async}, the "
-        f"fallback's retries after each {after}, its dense pass "
+    steady = [eng.count_async(t5).result() for _ in range(3)]
+    read_launches("engines tandem", ("stages", "cascade", "filter_mask",
+                                     "words_view"), total)
+    log(f"engine wm on the tandem repeat ({TANDEM_PATS} of {t_pats.p_size} "
+        f"patterns, {TANDEM_AT} bytes of a {TANDEM_UNIT}-byte unit in "
+        f"{TANDEM_N}): counts {counts} then {steady} (truth {t_truth}), "
+        f"pinned to the fallback {fp._use_fallback_async}, the fallback's "
+        f"retries after each {after}, its dense pass "
         f"{fp._fallback._match_dense if fp._fallback else None}")
-    assert counts + steady == [d_truth] * (len(counts) + 3), "dense32 wm"
-    assert fp._use_fallback_async, "dense32: the engine never overflowed"
+    assert counts + steady == [t_truth] * (len(counts) + 3), "tandem wm"
+    assert fp._use_fallback_async, "tandem: the engine never overflowed"
     assert 1 <= fb_retries() <= MAX_RETRIES, f"{fb_retries()} retries"
-    assert after[-1] == fb_retries(), "dense32: the fallback kept retrying"
+    assert after[-1] == fb_retries(), "tandem: the fallback kept retrying"
 
     reset_launches()
     portable = {}
@@ -1631,6 +1665,7 @@ def distributed_path(tdev, codes, gates, fpos, named, slot_pats, dense,
     from tpu_smatcher_torch.core.patterns import PatternSet
     from tpu_smatcher_torch.ops import cuda_filter as cf
     from tpu_smatcher_torch.parallel import DistributedPositions, make_mesh
+    from tpu_smatcher_torch.parallel.dist import DistributedCounter
 
     mesh = make_mesh(1, device="cuda")
     log(f"distributed world 1: {mesh}")
@@ -1689,12 +1724,15 @@ def distributed_path(tdev, codes, gates, fpos, named, slot_pats, dense,
         assert many == [c, c], f"distributed {name} m={m}: {many}"
     secs["engines"] = time.perf_counter() - t0
 
-    # the sharded ladder: step 1 on dense32's text, step 2 on an all-match
-    # text (a filter_mask launch per dense pass and per piece)
+    # the sharded ladder: step 1 on dense32's text (over its SLOT_BITS
+    # tables), step 2 on an all-match text (a filter_mask launch per dense
+    # pass and per piece)
     t0 = time.perf_counter()
     _, t2, d_truth = dense
     reset_launches()
-    dc = make_distributed("fast", slot_pats, mesh)
+    ladder = slot_scanner(slot_pats, mesh.device)
+    dc = DistributedCounter(ladder.core, mesh, m=slot_pats.m,
+                            sigma=slot_pats.sigma, fast=ladder)
     raw = dc.count_with_overflow(t2)
     mask0 = cf.LAUNCHES["filter_mask"]
     d_count = dc.count(t2)
@@ -2091,9 +2129,10 @@ def conformance_path(total):
     protein m=32 p=400 over 4 MiB (count, positions, the five engines, a
     table checkpoint, count_file / positions_file, matches attribution,
     scan_many); m=256 and m=1024 through make_fast; the full fingerprint
-    collision set (8 exact scans, then fallback_scans no longer growing
-    over 3 more); the sigma=20 p=4000 match-dense set (2 exact scans, no
-    stage bumps once the dense pass is on)."""
+    collision set at SLOT_BITS-bit stages (8 exact scans that retry, then
+    fallback_scans no longer growing over 3 more) and at the default width
+    (11 exact scans, no retry); the sigma=20 p=4000 match-dense set (2
+    exact scans, no stage bumps once the dense pass is on)."""
     import tempfile
     import numpy as np
     import torch
@@ -2159,19 +2198,29 @@ def conformance_path(total):
 
     # windows x and x + FP_COLLISION_D share the three base fingerprints,
     # so x passes every derived stage of pattern x + d: planted every 96
-    # bytes they overflow the per-block slots until the scanner adapts
+    # bytes they overflow SLOT_BITS tables' per-block slots until the
+    # scanner adapts; at the default width the cascade's row slots hold them
     atext, apats = collision_case(2 * MiB)
     atruth = datagen.count_matches(atext, apats)
-    afast = make_fast(apats)
+    afast = slot_scanner(apats)
     adev = torch.from_numpy(atext).cuda()
     check("fp collision, 8 scans", [afast.count(adev) for _ in range(8)],
           [atruth] * 8)
     mid = afast.fallback_scans
+    check("fp collision retried", mid >= 1, True)
     for _ in range(3):
         afast.count(adev)
     check("fp collision converged", afast.fallback_scans, mid)
-    log(f"  fp collision (2 MiB): {atruth} x 8, fallback_scans {mid}, "
-        f"_k_extra {afast._k_extra}, _match_dense {afast._match_dense}")
+    log(f"  fp collision (2 MiB, {SLOT_BITS}-bit stages): {atruth} x 8, "
+        f"fallback_scans {mid}, _k_extra {afast._k_extra}, _match_dense "
+        f"{afast._match_dense}")
+    bfast = make_fast(apats)
+    check("fp collision at the default width, 11 scans",
+          [bfast.count(adev) for _ in range(11)], [atruth] * 11)
+    check("fp collision at the default width, no retry",
+          bfast.fallback_scans, 0)
+    log(f"  fp collision (2 MiB, {bfast.ft.stage_bits}-bit stages): "
+        f"{atruth} x 11, fallback_scans 0")
 
     ab20 = Alphabet.of_size(20)
     dtext = datagen.generate_text(2 * MiB, ab20, seed=21)
@@ -2779,7 +2828,7 @@ def main() -> int:
         ext, fpos = positions_path(text, tdev, engines, codes, dense, sat,
                                    total)
         t2 = time.perf_counter()
-        named = engines_path(text, tdev, codes, fpos, pats, dense, total)
+        named = engines_path(text, tdev, codes, fpos, pats, total)
         t3 = time.perf_counter()
         mixed = mixed_path(text, tdev, codes, gates, total)
         t4 = time.perf_counter()

@@ -13,6 +13,7 @@ from tpu_smatcher import cli as jcli
 from tpu_smatcher_torch import cli
 from tpu_smatcher_torch.core import datagen
 from tpu_smatcher_torch.core.alphabet import Alphabet
+from tpu_smatcher_torch.ops.fast import STAGE_WIDTHS
 
 JAX = ["--backend", "xla"]
 PORT = ["--device", "cpu"]
@@ -112,7 +113,7 @@ def test_cli_algo_all_agree(corpus_files, capsys):
 def test_cli_profile_reports_spans(tmp_path, capsys):
     """--profile writes the Chrome trace of the timed scans, which holds
     the port's spans, and their summary under "spans", with the routes
-    the scans took."""
+    the scans took and their stage width."""
     from tpu_smatcher_torch.utils import profiling
     logdir = tmp_path / "prof"
     cli.main(["--synthetic", "--n", "60000", "--m", "16", "--p-size", "40",
@@ -123,6 +124,8 @@ def test_cli_profile_reports_spans(tmp_path, capsys):
     spans = p["spans"]
     assert spans["tsm.count"]["calls"] == 3
     assert sum(spans["tsm.route"]["paths"].values()) == 3
+    ((bits, calls),) = spans["tsm.route"]["bits"].items()
+    assert calls == 3 and int(bits) in STAGE_WIDTHS
     for name in ("tsm.enqueue", "tsm.filter", "tsm.compact", "tsm.verify",
                  "tsm.readback"):
         row = spans[name]

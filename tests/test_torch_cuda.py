@@ -121,6 +121,54 @@ def test_cascade_kernel_on_wide_stages_matches_plain(cuda, m, k1):
     assert k1 != 6 or int(ovf) == 1
 
 
+#: bench.py's five tiers at 16 MiB: (m, p, the width the JAX package's
+#: TPU-fitted rule gives them, which the port used before its own)
+BENCH_TIERS = [(8, 10_000, None), (16, 10_000, 16384), (32, 10_000, 16384),
+               (32, 30_000, 32768), (32, 100_000, 131072)]
+
+
+@pytest.fixture(scope="module")
+def bench_text():
+    from tpu_smatcher_torch.core.alphabet import Alphabet
+    return datagen.generate_text(1 << 24, Alphabet.dna(), seed=7)
+
+
+@pytest.mark.parametrize("m,p,tpu_bits", BENCH_TIERS)
+def test_default_width_counts_like_the_tpu_width(cuda, bench_text, m, p,
+                                                 tpu_bits, tmp_path):
+    """At the default stage width (ops/fast.h100_stage_bits) the cascade
+    equals its plain version, the route is the cascade, and make_fast's
+    count equals the count at the TPU-fitted width, with no retry; tables
+    saved at that width load and count the same."""
+    from tpu_smatcher_torch.core import checkpoint
+    from tpu_smatcher_torch.core.alphabet import Alphabet
+    from tpu_smatcher_torch.engines import make_engine_from_tables
+    pats = datagen.generate_patterns(bench_text, p, m, Alphabet.dna(),
+                                     frac_present=0.5,
+                                     seed=8 if m == 8 else 8 + m)
+    t = torch.from_numpy(bench_text).to(cuda)
+    eng = make_fast(pats, device=cuda)
+    count = eng.count(t)
+    assert eng.fallback_scans == 0
+    if tpu_bits is None:                  # the exact tier: no stages
+        assert eng.ft.exact
+        assert count == int(cf.exact_count_plain(t, eng.ft.bitmaps[0], m=m,
+                                                 sigma=4))
+        return
+    n = len(bench_text)
+    assert eng._pick_path(n, tfast.stages_for(eng.ft, n, eng.cap))[0] == \
+        "cascade"
+    assert _check_cascade(cuda, bench_text, pats) == 0
+    old = tfast.build_fast(pats.codes, 4, stage_bits=tpu_bits, device=cuda)
+    assert tfast.FastScanner(old).count(t) == count
+    path = tmp_path / "tables.npz"
+    checkpoint.save_tables(path, {"main": old})
+    loaded = checkpoint.load_tables(path, device=cuda)
+    assert loaded["main"].stage_bits == tpu_bits
+    assert make_engine_from_tables("fast", loaded, device=cuda).count(t) \
+        == count
+
+
 def test_cascade_kernel_after_a_smaller_large_launch(cuda):
     """Three launches above the default 48 KB of shared memory: 192 KB of
     phase-1 stages, then 48 KB, then 192 KB again.  The second lowers the
@@ -457,10 +505,12 @@ ROUTE_KERNEL = {"slot": "filter_slots", "cascade": "cascade",
 
 
 def test_slot_route_on_the_card(cuda):
-    """A DNA m=32 p=1000 set takes the slot route: filter_slots and
+    """A DNA m=32 p=1000 set at 4,096-bit stages takes the slot route
+    (the default width gives it to the cascade): filter_slots and
     words_view launch, and the count is exact."""
     text, pats = make_case(4, 32, 1000, 1 << 20, seed=40)
-    eng = make_fast(pats, device=cuda)
+    eng = tfast.FastScanner(tfast.build_fast(pats.codes, 4, stage_bits=4096,
+                                             device=cuda))
     n = len(text)
     assert eng._pick_path(n, tfast.stages_for(eng.ft, n, eng.cap))[0] == \
         "slot"
@@ -1024,12 +1074,15 @@ def test_sweep_small_on_the_card(cuda, tmp_path):
 
 
 def test_fp_collision_cell_on_the_card(cuda):
-    """The full fingerprint collision: 8 exact scans, then no further
-    retries over 3 more (the scanner converged)."""
+    """The full fingerprint collision.  At the slot route's 4,096-bit
+    stages, whose per-block slots it crowds: 8 exact scans, then no
+    further retries over 3 more (the scanner converged).  At the default
+    width the cascade's row slots hold it: 11 exact scans, no retry."""
     from tpu_smatcher_torch.tools.find_fp_collision import collision_case
     text, pats = collision_case()
     truth = datagen.count_matches(text, pats)
-    eng = make_fast(pats)
+    eng = tfast.FastScanner(tfast.build_fast(pats.codes, 4, stage_bits=4096,
+                                             device=cuda))
     t = torch.from_numpy(text).cuda()
     assert [eng.count(t) for _ in range(8)] == [truth] * 8
     mid = eng.fallback_scans
@@ -1037,3 +1090,6 @@ def test_fp_collision_cell_on_the_card(cuda):
     for _ in range(3):
         assert eng.count(t) == truth
     assert eng.fallback_scans == mid
+    eng = make_fast(pats)
+    assert [eng.count(t) for _ in range(11)] == [truth] * 11
+    assert eng.fallback_scans == 0

@@ -157,13 +157,15 @@ def test_verify_attr_matches_jax(slot_ok):
 
 def test_mask_verify_matched_matches_jax():
     """The fp piece: _mask_verify(matched=True) returns JAX's (idxs,
-    match mask, internal pid, overflow) on the same tables and text."""
+    match mask, internal pid, overflow) on the same tables (at the JAX
+    package's width) and text."""
     text, pats = make_case(4, 16, 64, 30_011, seed=23)
     cap = 1 << 12
-    jeng = jfast.FastScanner(jfast.build_fast(pats.codes, 4), cap=cap,
-                             backend="pallas", interpret=True)
-    eng = tfast.FastScanner(tfast.build_fast(pats.codes, 4, device="cpu"),
-                            cap=cap)
+    jft = jfast.build_fast(pats.codes, 4)
+    jeng = jfast.FastScanner(jft, cap=cap, backend="pallas", interpret=True)
+    eng = tfast.FastScanner(tfast.build_fast(pats.codes, 4,
+                                             stage_bits=jft.stage_bits,
+                                             device="cpu"), cap=cap)
     n = len(text)
     k = tfast.stages_for(eng.ft, n, cap)
     assert k == jfast.stages_for(jeng.ft, n, cap)

@@ -49,12 +49,13 @@ def _case(name, frac=0.5):
 
 def _scanners(pats, stage_bits, **kw):
     """(JAX FastScanner on the Pallas backend in interpret mode, the port's
-    FastScanner on the CPU), over tables built from the same codes."""
-    jeng = jfast.FastScanner(
-        jfast.build_fast(pats.codes, pats.sigma, stage_bits=stage_bits),
-        backend="pallas", interpret=True, **kw)
+    FastScanner on the CPU), over tables built from the same codes at one
+    stage width (the JAX package's where stage_bits is None: the port's
+    own default is the H100's)."""
+    jft = jfast.build_fast(pats.codes, pats.sigma, stage_bits=stage_bits)
+    jeng = jfast.FastScanner(jft, backend="pallas", interpret=True, **kw)
     eng = tfast.FastScanner(
-        tfast.build_fast(pats.codes, pats.sigma, stage_bits=stage_bits,
+        tfast.build_fast(pats.codes, pats.sigma, stage_bits=jft.stage_bits,
                          device="cpu"), **kw)
     return jeng, eng
 

@@ -27,7 +27,8 @@ TABLE_CASES.append(pytest.param("wide", id="wide32768"))
 
 def _tables(case):
     """(JAX tables, port tables) of one case: test_fast.py's CASES, or the
-    cascade's 32768-bit wide case."""
+    cascade's 32768-bit wide case; the port's at the JAX package's width
+    (its own default is the H100's)."""
     if case == "wide":
         _, pats = wide_case(0.02)
         codes, sigma, stage_bits = pats.codes, 4, 32768
@@ -35,9 +36,9 @@ def _tables(case):
         sigma, m, p, _ = case
         _, pats = make_case(sigma, m, p, 20_000, seed=3 * sigma + m)
         codes, stage_bits = pats.codes, None
-    return (jfast.build_fast(codes, sigma, stage_bits=stage_bits),
-            tfast.build_fast(codes, sigma, stage_bits=stage_bits,
-                             device="cpu"))
+    jft = jfast.build_fast(codes, sigma, stage_bits=stage_bits)
+    return jft, tfast.build_fast(codes, sigma, stage_bits=jft.stage_bits,
+                                 device="cpu")
 
 
 @pytest.mark.parametrize("case", TABLE_CASES)

@@ -12,7 +12,8 @@ import numpy as np
 import pytest
 
 from tpu_smatcher_torch.core import datagen
-from tpu_smatcher_torch.ops.fast import FP_MULTS, _fp_keys_np
+from tpu_smatcher_torch.ops.fast import (FP_MULTS, FastScanner, _fp_keys_np,
+                                         build_fast)
 from tpu_smatcher_torch.tools import (compare_sweeps, find_fp_collision,
                                       ladder, soak, sweep)
 import torch_cases  # noqa: F401  (one torch thread per test process)
@@ -152,15 +153,22 @@ def test_fp_collision_search_small():
 
 
 def test_fp_collision_cell_converges_cpu():
-    """The adversarial cell at 256 KB on the plain versions: 8 exact
-    scans that retry while the scanner adapts, then none over 3 more."""
+    """The adversarial cell at 256 KB on the plain versions.  At the slot
+    route's 4,096-bit stages, where its collisions crowd the per-block
+    slots: 8 exact scans that retry while the scanner adapts, then none
+    over 3 more.  At the default width the cascade's 16 slots a 128-start
+    row hold them: 11 exact scans, no retry."""
     from tpu_smatcher_torch import make_fast
     text, pats = find_fp_collision.collision_case(1 << 18)
     truth = datagen.count_matches(text, pats)
-    eng = make_fast(pats, device="cpu")
+    eng = FastScanner(build_fast(pats.codes, 4, stage_bits=4096,
+                                 device="cpu"))
     assert [eng.count(text) for _ in range(8)] == [truth] * 8
     mid = eng.fallback_scans
     assert mid >= 1
     for _ in range(3):
         assert eng.count(text) == truth
     assert eng.fallback_scans == mid
+    eng = make_fast(pats, device="cpu")
+    assert [eng.count(text) for _ in range(11)] == [truth] * 11
+    assert eng.fallback_scans == 0

@@ -84,6 +84,7 @@ def test_fp_count_span_tree(fp_case, traced):
     assert req[0].root and not any(s.root for s in req[1:])
     route = req[2].attrs
     assert route["path"] == "cascade" and 1 <= route["k1"] < route["kt"]
+    assert route["bits"] == eng.ft.stage_bits == 32768
     assert all(s.t1_ns >= s.t0_ns for s in req)
     # no device markers on the CPU
     assert all(s.device_ms is None for s in req)
@@ -122,6 +123,7 @@ def test_self_time_is_the_span_less_its_children(fp_case, traced):
                                                abs=1e-9)
         assert row["device_ms"] is None
     assert rows["tsm.route"]["paths"] == {"cascade": 2}
+    assert rows["tsm.route"]["bits"] == {32768: 2}
     assert rows["tsm.count"]["self_ms"] < rows["tsm.count"]["host_ms"]
 
 

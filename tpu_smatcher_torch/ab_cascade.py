@@ -10,9 +10,13 @@ card, in one process, interleaved, on bench.py's 256 MiB DNA corpus
   exact_count_guard  the guarded exact count (tsm_exact_count, guard=1),
                 m=8 p=10k, on the text + m-1 pad bytes as core() calls it
   cascade       the cascade (tsm_cascade) at m=16 p=10k, m=32 p=10k, m=32
-                p=30k and m=32 p=100k, each with its route's (k1, kt)
+                p=30k and m=32 p=100k, each with its route's (k1, kt); with
+                --widths, each tier's tables at every stage width from
+                16,384 to 262,144 bits instead, each with the (k1, kt) the
+                router gives that width, phase 1's shared-memory bytes and
+                the candidates the cascade leaves (compacted)
   filter_slots  filter.cu's slots mode (tsm_filter_slots) on slot32: m=32
-                p=1000, the slot route's 7 stages of 4096 bits
+                p=1000 at 4,096-bit stages, the slot route's 7 stages
   filter_mask   filter.cu's mask mode (tsm_filter_mask) on dense32's dense
                 pass (the slot32 set, pattern 0 planted every 256 bytes over
                 [1 MiB, 3 MiB), its k stages), on saturated (the 4 MiB
@@ -33,6 +37,7 @@ card, in one process, interleaved, on bench.py's 256 MiB DNA corpus
     python3 -m tpu_smatcher_torch.ab_cascade OTHER_CHECKOUT [...] [--reps N]
         [--kernels NAME ...]
     python3 -m tpu_smatcher_torch.ab_cascade checkout/parent --kernels stages
+    python3 -m tpu_smatcher_torch.ab_cascade --widths [OTHER_CHECKOUT ...]
 
 Each checkout's csrc source of a kernel is built with this checkout's nvcc
 flags and that checkout's headers into this checkout's build/ directory and
@@ -65,6 +70,8 @@ KERNELS = {"exact_count": ("exact_count.cu", "tsm_exact_count"),
 #: bench.py's tiers: (name, m, p)
 TIERS = (("exact", 8, 10_000), ("fp16", 16, 10_000), ("fp", 32, 10_000),
          ("fp32_p30k", 32, 30_000), ("fp32_p100k", 32, 100_000))
+#: the stage widths --widths times the cascade at
+SWEEP_WIDTHS = (16384, 32768, 65536, 131072, 262144)
 #: the filter kernels' inputs: (name, kernel)
 CELLS = (("slot32", "filter_slots"), ("dense32", "filter_mask"),
          ("saturated", "filter_mask"), ("fp_matches", "filter_mask"))
@@ -105,8 +112,7 @@ def launcher(text, eng):
     """(kernel name, label, launch(fn) -> outputs) of one tier's main-path
     filter kernel on text."""
     import torch
-    from tpu_smatcher_torch.ops import cuda_filter as cf
-    from tpu_smatcher_torch.ops.common import bits_per_char, cdiv
+    from tpu_smatcher_torch.ops.common import bits_per_char
     from tpu_smatcher_torch.ops.fast import stages_for
     ft = eng.ft
     n, m = int(text.shape[0]), ft.m
@@ -125,6 +131,19 @@ def launcher(text, eng):
         return "exact_count", f"m={m}", launch
     route, k1, kt = eng._pick_path(n, stages_for(ft, n, eng.cap))
     assert route == "cascade", route
+    return "cascade", f"m={m} k1={k1} kt={kt}", cascade_launch(text, ft, k1,
+                                                                 kt)
+
+
+def cascade_launch(text, ft, k1, kt):
+    """launch(fn) -> (slots, ovf) of tsm_cascade on text with the first kt
+    stages of ft, k1 of them in phase 1."""
+    import torch
+    from tpu_smatcher_torch.ops import cuda_filter as cf
+    from tpu_smatcher_torch.ops.common import cdiv
+    n, m = int(text.shape[0]), ft.m
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    dev = torch.cuda.current_device()
     bitmaps = ft.bitmaps[:kt]
     rows = cdiv(n - m + 1, cf.ROW)
     cd = cf._cd_host(ft.cd(kt), kt)
@@ -138,7 +157,53 @@ def launcher(text, eng):
                 ovf.data_ptr(), dev, stream)
         assert rc == 0, f"launch failed: cudaError {rc}"
         return slots, ovf
-    return "cascade", f"m={m} k1={k1} kt={kt}", launch
+    return launch
+
+
+def width_sweep(text, t, builds, reps):
+    """The cascade on each fp tier's tables at every width of SWEEP_WIDTHS,
+    with the (k1, kt) the router gives that width (a width with no
+    cascade split is reported and skipped).  Prints the width the port's
+    rule (h100_stage_bits) picks from the tier's stage-0 fills, then per
+    width the times, phase 1's shared-memory bytes and the candidates the
+    cascade leaves."""
+    from tpu_smatcher_torch.core import datagen
+    from tpu_smatcher_torch.core.alphabet import Alphabet
+    from tpu_smatcher_torch.ops import cuda_filter as cf
+    from tpu_smatcher_torch.ops.fast import (STAGE_WIDTHS, FastScanner,
+                                             build_fast, h100_stage_bits,
+                                             stages_for)
+    n = int(t.shape[0])
+    for name, m, p in TIERS:
+        if m == 8:                        # the exact tier has no stages
+            continue
+        pats = datagen.generate_patterns(text, p, m, Alphabet.dna(),
+                                         frac_present=0.5, seed=8 + m)
+        engs = {sb: FastScanner(build_fast(pats.codes, 4, stage_bits=sb,
+                                           device="cuda"))
+                for sb in STAGE_WIDTHS}
+        fill0 = {sb: e.ft.density for sb, e in engs.items()}
+        print(f"tier {name} (m={m} p={p}): rule {h100_stage_bits(fill0)}, "
+              f"stage-0 fills "
+              + ", ".join(f"{sb}: {d:.4f}" for sb, d in fill0.items()),
+              flush=True)
+        for sb in SWEEP_WIDTHS:
+            eng = engs[sb]
+            cost = eng._route_costs(n, stages_for(eng.ft, n, eng.cap))
+            if "cascade" not in cost:
+                print(f"  {sb} bits: no cascade split (fill "
+                      f"{fill0[sb]:.4f})", flush=True)
+                continue
+            _, k1, kt = cost["cascade"]
+            launch = cascade_launch(t, eng.ft, k1, kt)
+            _, o, n_cand = cf.compact_rows_plain(*launch(builds[0][1]),
+                                                 cap=eng.cap)
+            compare(builds, f"tier {name} (p={p}) at {sb} bits",
+                    f"cascade m={m} k1={k1} kt={kt} phase-1 "
+                    f"{k1 * sb // 8} B, candidates {int(n_cand)} (cap "
+                    f"{eng.cap}, overflow {int(o)}), route "
+                    f"{min(cost, key=lambda r: cost[r][0])}, n={n}", launch,
+                    reps)
 
 
 def verify_launcher(text, eng):
@@ -277,9 +342,11 @@ def cell_input(cell, text, t):
                                      seed=40)
     if cell == "saturated":
         t = t[:4 * MiB]
-        ft = build_fast(pats.codes, 4, stage_bits=4096, device="cuda")
-    else:
-        ft = build_fast(pats.codes, 4, device="cuda")
+    # slot32, dense32 and saturated at the slot route's 4,096-bit stages
+    # (the default width gives slot32's set to the cascade); fp_matches at
+    # the main path's
+    ft = build_fast(pats.codes, 4, stage_bits=None if cell == "fp_matches"
+                    else 4096, device="cuda")
     eng = FastScanner(ft)
     n = int(t.shape[0])
     k = stages_for(ft, n, eng.cap)
@@ -395,11 +462,18 @@ def compare(kb, name, what, launch, reps):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("others", nargs="+", help="checkout roots to time")
+    ap.add_argument("others", nargs="*", help="checkout roots to time")
     ap.add_argument("--reps", type=int, default=15)
     ap.add_argument("--kernels", nargs="+", choices=sorted(KERNELS),
                     default=sorted(KERNELS), help="kernels to time")
+    ap.add_argument("--widths", action="store_true",
+                    help="time the cascade alone, on each fp tier at every "
+                    "stage width from 16,384 to 262,144 bits")
     args = ap.parse_args(argv)
+    if args.widths:
+        args.kernels = ["cascade"]
+    elif not args.others:
+        ap.error("name a checkout to time against, or pass --widths")
 
     import torch
     if not torch.cuda.is_available():
@@ -423,6 +497,9 @@ def main(argv=None) -> int:
     ab = Alphabet.dna()
     text = datagen.generate_text(n, ab, seed=7)
     t = torch.from_numpy(text).cuda()
+    if args.widths:
+        width_sweep(text, t, builds["cascade"], args.reps)
+        return 0
     for name, m, p in TIERS:
         if not {"exact_count", "cascade"} & set(builds):
             break

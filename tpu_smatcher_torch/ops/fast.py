@@ -19,7 +19,8 @@ Port of tpu_smatcher/ops/fast.py.  Two tiers, as in the JAX package:
       mask     cuda_filter.filter_mask: the per-start mask -> compact_mask
 
 Tables are built on the host with numpy exactly as the JAX package builds
-them (build_fast), or carried across from it (FastTables.from_numpy).
+them at one stage width (build_fast; the default width is the H100's, see
+there), or carried across from it (FastTables.from_numpy).
 
 Overflow (a sub-block or row with more candidates than its slots, or more
 than `cap` in all) never undercounts.  The scan's future retries through
@@ -225,21 +226,52 @@ def stages_for_block(ft: FastTables, block_positions: int,
     return k
 
 
+def _phase1_depth(fills, stage_bits: int, lam_row: float = 4.0):
+    """The smallest k whose expected phase-1 survivors per 128-start row,
+    128 * prod(fills[:k]) * cf1, fit lam_row; None when no prefix does."""
+    cf1 = 2.5 if stage_bits <= BITMAP_BITS else 1.3
+    prod = 1.0
+    for k, fill in enumerate(fills, 1):
+        prod *= fill
+        if 128 * prod * cf1 <= lam_row:
+            return k
+    return None
+
+
 def k1_for(ft: FastTables, lam_row: float = 4.0) -> int | None:
     """Phase-1 depth of the cascade: the smallest dense stage count whose
     expected survivors per 128-start row, 128 * prod(fills) * cf1, fit
     lam_row; None when no built prefix does."""
     if ft.exact:
         return None
-    cf1 = 2.5 if ft.stage_bits <= BITMAP_BITS else 1.3
     nb = len(ft.bitmaps)
     fills = ft.stage_fills or (ft.density,) * nb
-    prod = 1.0
-    for k in range(1, min(len(fills), nb) + 1):
-        prod *= fills[k - 1]
-        if 128 * prod * cf1 <= lam_row:
-            return k
-    return None
+    return _phase1_depth(fills[:nb], ft.stage_bits, lam_row)
+
+
+#: the stage widths build_fast chooses among
+STAGE_WIDTHS = (4096, 8192, 16384, 32768, 65536, 131072, 262144)
+#: shared memory the cascade's phase-1 bitmaps may take: what it stages at
+#: p=100k (six 131,072-bit stages), where two of its 512-thread blocks
+#: still fit on an H100 SM
+PHASE1_SMEM_BYTES = 96 * 1024
+
+
+def h100_stage_bits(fill0: dict) -> int:
+    """The stage width for the H100's cascade, from stage 0's fill at each
+    width (fill0: {stage_bits: fill}): the width whose phase 1 needs the
+    fewest stages (k1_for's estimate, stage 0's fill standing for every
+    stage's) among those whose phase-1 bitmaps fit PHASE1_SMEM_BYTES, the
+    narrower on a tie; the widest when none fits.  A shared-memory bit
+    test costs the same at any width, so a wider stage filters more per
+    test; fewer phase-1 stages leave fewer divergent stage iterations per
+    warp."""
+    best = None
+    for sb in sorted(fill0):
+        k1 = _phase1_depth((fill0[sb],) * (PHASE1_SMEM_BYTES * 8 // sb), sb)
+        if k1 is not None and (best is None or k1 < best[0]):
+            best = (k1, sb)
+    return max(fill0) if best is None else best[1]
 
 
 def build_fast(patterns: np.ndarray, sigma: int, *,
@@ -247,8 +279,19 @@ def build_fast(patterns: np.ndarray, sigma: int, *,
                stage_bits: int | None = None,
                device) -> FastTables:
     """Host-side table build, identical to tpu_smatcher.ops.fast.build_fast
-    (see there for the cost model's reasoning); tensors go to `device`,
-    which the caller names (no implicit CPU)."""
+    at one stage width (see there for the reasoning); tensors go to
+    `device`, which the caller names (no implicit CPU).
+
+    The default width departs from the JAX package's.  Its cost model was
+    fitted on the TPU, where a gather costs one unit per 4,096-bit bank,
+    and picks 16,384 bits at p=10k: stages 46% full, six of them in the
+    cascade's phase 1.  On the H100 a bit test in shared memory costs the
+    same at any width, and the cascade's time follows its phase-1 stage
+    count, so h100_stage_bits picks the width with the fewest phase-1
+    stages that fit in shared memory: 131,072 bits at p=10k, 7% full, two
+    stages; the widest (262,144 bits, the JAX rule's own last resort) when
+    none fits (p well above 100k).  stage_bits= forces a width (the JAX
+    package's, for tables equal to its own)."""
     patterns = np.asarray(patterns, np.uint8)
     n_orig = patterns.shape[0]
 
@@ -280,18 +323,10 @@ def build_fast(patterns: np.ndarray, sigma: int, *,
         C, D = STAGE_CD[2]
         return (fps[0] + C * fps[1] + D * fps[2]) & (sb - 1)
 
-    C_ALU, C_GATHER = 0.3, 1.0
     if stage_bits is None:
-        stage_bits, best_cost = 0, None
-        for sb in (4096, 8192, 16384, 32768, 65536, 131072, 262144):
-            d = _fill(pack_bitmap(key0_for(sb), sb), sb)
-            if d >= 0.98:
-                continue
-            cost = (C_ALU + (sb // 4096) * C_GATHER) / -math.log2(d)
-            if best_cost is None or cost < best_cost:
-                stage_bits, best_cost = sb, cost
-        if stage_bits == 0:
-            stage_bits = 262144
+        fill0 = {sb: _fill(pack_bitmap(key0_for(sb), sb), sb)
+                 for sb in STAGE_WIDTHS}
+        stage_bits = h100_stage_bits(fill0)
     density = _fill(pack_bitmap(key0_for(stage_bits), stage_bits), stage_bits)
     cd_table = STAGE_CD if stage_bits <= BITMAP_BITS else STAGE_CD[2:]
 
@@ -754,7 +789,8 @@ class FastScanner:
             path, k1, kt = self._pick_path(n, stages_for(self.ft, n,
                                                          self.cap))
             if sp:
-                sp.attrs.update(path=path, k1=k1, kt=kt)
+                sp.attrs.update(path=path, k1=k1, kt=kt,
+                                bits=self.ft.stage_bits)
         return self._route_count(text, path, k1, kt)
 
     def _route_count(self, text, path, k1, kt):

@@ -266,12 +266,16 @@ def requests(last: int) -> list:
             for r in roots[max(len(roots) - last, 0):]]
 
 
+#: span attributes whose calls summary() counts by value: (attr, key)
+_COUNTED_ATTRS = (("path", "paths"), ("bits", "bits"))
+
+
 def summary() -> dict:
     """{span name: {calls, host_ms, self_ms, device_ms}} over the store:
     host ms summed, self ms the spans less their children's host ms,
     device ms summed over the spans that have it (None where none has);
-    a name whose spans carry a `path` attribute also gets `paths`, the
-    calls by path."""
+    a name whose spans carry a `path` or a `bits` attribute (tsm.route's
+    stage width) also gets `paths` or `bits`, the calls by its value."""
     _resolve()
     spans = [_record(rec) for rec in _store]
     child_ms = collections.Counter()
@@ -287,9 +291,10 @@ def summary() -> dict:
         row["self_ms"] += s.host_ms - child_ms[s.id]
         if s.device_ms is not None:
             row["device_ms"] = (row["device_ms"] or 0.0) + s.device_ms
-        if "path" in s.attrs:
-            paths = row.setdefault("paths", {})
-            paths[s.attrs["path"]] = paths.get(s.attrs["path"], 0) + 1
+        for attr, key in _COUNTED_ATTRS:
+            if attr in s.attrs:
+                calls = row.setdefault(key, {})
+                calls[s.attrs[attr]] = calls.get(s.attrs[attr], 0) + 1
     return out
 
 
