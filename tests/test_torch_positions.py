@@ -288,6 +288,98 @@ def test_piece_overflow_below_the_guarantee_raises(monkeypatch):
         eng.positions(text)
 
 
+def _weights(kind):
+    """Per-start match weights of the piece pipeline's fake scans."""
+    if kind == "uniform":
+        return np.ones(1025, np.int64)
+    rng = np.random.default_rng(7)
+    w = rng.integers(0, 3, 3001)
+    w[1200:1700] = 9                      # a dense stretch
+    return w
+
+
+#: (weights, presize, limit, min_chunk): a fake scan overflows when its
+#: piece's weight exceeds limit
+PIPELINE_CASES = {
+    "odd_uniform": ("uniform", None, 256, 64),
+    "dense_stretch": ("dense", None, 300, 32),
+    "presized": ("dense", 700, 300, 32),
+    "min_chunk_floor": ("dense", 1001, 300, 16),
+    "below_the_guarantee": ("uniform", None, 256, 300),
+}
+
+
+@pytest.mark.parametrize("case", list(PIPELINE_CASES))
+def test_split_pieces(case):
+    """common.split_pieces on a fake scan: an overflowing piece splits in
+    two at max(min_chunk, ceil(owned / 2)); every start is owned by one
+    yielded piece; the values sum to the truth; at depth 1 the pieces come
+    in text order, and the pieces do not depend on the depth; a piece of
+    <= min_chunk starts that overflows raises."""
+    from tpu_smatcher_torch.ops.common import cut_pieces, split_pieces
+    kind, presize, limit, min_chunk = PIPELINE_CASES[case]
+    w = _weights(kind)
+    total = len(w)
+    work = cut_pieces(0, total, presize or total)
+
+    def run(depth):
+        launched = []
+
+        def launch(start, owned):
+            launched.append((start, owned))
+            return int(w[start:start + owned].sum())
+
+        out = list(split_pieces(work, launch, lambda v: (v > limit, v),
+                                min_chunk=min_chunk, depth=depth))
+        return out, launched
+
+    if case == "below_the_guarantee":
+        with pytest.raises(AssertionError, match="guaranteed size"):
+            run(4)
+        return
+    out, launched = run(1)
+    starts = [s for s, _, _ in out]
+    assert starts == sorted(starts)
+    owned = np.zeros(total, np.int64)
+    for s, o, v in out:
+        owned[s:s + o] += 1
+        assert v == w[s:s + o].sum() <= limit
+    assert (owned == 1).all()
+    assert sum(v for _, _, v in out) == w.sum()
+    for s, o in launched:
+        if w[s:s + o].sum() > limit:
+            half = max(min_chunk, -(-o // 2))
+            assert (s, half) in launched and (s + half, o - half) in launched
+    assert len(launched) == len(work) + 2 * (len(launched) - len(out))
+    for depth in (2, 4):
+        out_d, launched_d = run(depth)
+        assert sorted(out_d) == out and sorted(launched_d) == \
+            sorted(launched)
+
+
+def test_count_chunked_splits_odd_pieces_in_two(monkeypatch):
+    """_count_chunked on an all-matching text of 1,025 starts at cap=256:
+    every overflowing dense-core scan splits into two pieces (a split at
+    owned // 2 would make three), and the count is exact."""
+    pats = PatternSet(np.zeros((1, 16), np.uint8), Alphabet.dna())
+    eng = make_fast(pats, device="cpu", cap=256)
+    assert not eng.ft.exact
+    scans = []
+    dense = eng._dense_core()
+
+    def spy(piece):
+        c, o = dense(piece)
+        scans.append(bool(o))
+        return c, o
+
+    monkeypatch.setattr(eng, "_dense_core", lambda: spy)
+    n_starts = 1025
+    assert eng._count_chunked(torch.zeros(n_starts + 15,
+                                          dtype=torch.uint8)) == n_starts
+    split = sum(scans)
+    assert split > 0 and len(scans) == 1 + 2 * split
+
+
 def test_matches_attribution():
     """Smallest id on duplicate patterns; every id's pattern equals the
     window at its position; a non-match raises in datagen.match_ids."""

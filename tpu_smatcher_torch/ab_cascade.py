@@ -253,7 +253,7 @@ def exact_launchers(t, eng):
     dev = torch.cuda.current_device()
     owned = int(t.shape[0]) - m + 1
     total = int(cf.exact_count_plain(t, bm, m=m, sigma=sigma))
-    chunk = max(eng.cap // 2, min(owned // 2,
+    chunk = max(eng.cap // 2, min(-(-owned // 2),
                                   (eng.cap // 2) * owned // total))
     # the pieces begin one byte past positions' own (multiples of chunk,
     # even on the bench corpus), so that every one is at an odd address

@@ -11,6 +11,7 @@ killed by exact verification.
 
 from __future__ import annotations
 
+import collections
 import functools
 import os
 
@@ -76,6 +77,50 @@ def stream_positions_file(positions_fn, m: int, path: str, *,
     if not out:
         return np.empty((0,), np.int64)
     return np.concatenate(out)
+
+
+def cut_pieces(start: int, owned: int, size: int) -> list:
+    """Starts [start, start + owned) as (start, owned) pieces of `size`
+    starts, the last one shorter."""
+    return [(s, min(size, start + owned - s))
+            for s in range(start, start + owned, size)]
+
+
+def split_pieces(work, launch, finish, *, min_chunk: int, depth: int = 4):
+    """The split-on-overflow piece pipeline of the exact ladders and the
+    positions.  `work`: (start, owned) pieces of window starts, taken in
+    text order, `depth` in flight.  launch(start, owned) enqueues one
+    piece's scan with no host sync and returns its handle; finish(handle)
+    reads it back as (overflowed, value).  A piece that overflowed is
+    split in two at max(min_chunk, ceil(owned / 2)) starts, scanned
+    before the pieces still waiting; the caller's scan cannot overflow on
+    <= min_chunk starts, so such a piece raises AssertionError.  Yields
+    (start, owned, value) of every piece that did not overflow.  Its
+    choices depend on the flags alone: where they are all-reduced, every
+    rank splits the same pieces."""
+    work = collections.deque(work)
+    inflight = collections.deque()
+    while work or inflight:
+        while work and len(inflight) < depth:
+            start, owned = work.popleft()
+            inflight.append((start, owned, launch(start, owned)))
+        start, owned, handle = inflight.popleft()
+        overflowed, value = finish(handle)
+        if not overflowed:
+            yield start, owned, value
+            continue
+        if owned <= min_chunk:
+            raise AssertionError(
+                f"a piece of {owned} starts overflowed below the "
+                f"guaranteed size of {min_chunk} — this is a bug")
+        half = max(min_chunk, -(-owned // 2))
+        work.extendleft(reversed(cut_pieces(start, owned, half)))
+
+
+def finish_pair(co: torch.Tensor) -> tuple[bool, int]:
+    """split_pieces' finish of a (count, overflow) device pair."""
+    c, o = co.tolist()
+    return bool(o), int(c)
 
 
 # ---------------------------------------------------------------------------

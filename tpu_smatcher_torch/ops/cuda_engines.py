@@ -47,8 +47,8 @@ from tpu_smatcher_torch.ops.fast import (ScanFuture, FastScanner,
                                          compact_mask,
                                          compact_verify_retry,
                                          count_from_sub_blocks, device_text,
-                                         enqueue_sum, stages_for,
-                                         stages_for_block, verify_attr,
+                                         enqueue_sum, slot_stages,
+                                         stages_for, verify_attr,
                                          verify_text, words_len)
 from tpu_smatcher_torch.ops.keys import FP_MULTS, fp_keys, max_keys, wid_keys
 from tpu_smatcher_torch.ops.lookup import bitmap_test, pack_bitmap
@@ -344,24 +344,19 @@ class EngineFastPath:
         """(count 0-d int32, overflow 0-d int32) over the starts of ext, no
         host sync.  guard drops pad-contaminated windows of the exact tier
         (distribution shards); fused selects the async path: the slot mode
-        when its per-sub-block budget is reachable, else the mask."""
+        where fast.slot_stages finds it feasible, else the mask."""
         ft = self.ft
         n = int(ext.shape[0])
         zero = torch.zeros((), dtype=torch.int32, device=ext.device)
         if n < self.m:
             return zero, zero
-        kb = stages_for_block(ft, SUB_BLOCK) if not ft.exact else 1
-        use_slots = (not ft.exact) and fused and kb <= len(ft.bitmaps) and (
-            # meeting the slot budget must not cost more extra wide stages
-            # than the mask pipeline's whole overhead (the JAX router)
-            (kb - stages_for(ft, n, self.cap)) * (ft.stage_bits // 4096)
-            <= 48)
+        ks = slot_stages(ft, stages_for(ft, n, self.cap)) if fused else None
         flat = self._flat_ok() and not guard
-        chain, tables, exact = self._stages(n, k_min=kb if use_slots else 1)
+        chain, tables, exact = self._stages(n, k_min=ks or 1)
         if exact:
             return self._run(ext, chain, tables, "count", guard=guard,
                              flat=flat), zero
-        if use_slots:
+        if ks is not None:
             pos, counts = self._run(ext, chain, tables, "slots", flat=flat)
             return count_from_sub_blocks(ft, ext, pos, counts, cap=self.cap)
         mask2d = self._run(ext, chain, tables, "mask", flat=flat)

@@ -52,7 +52,8 @@ import torch
 
 from tpu_smatcher_torch.ops import cuda_filter
 from tpu_smatcher_torch.ops.common import (bits_per_char, cdiv, check_count32,
-                                           stream_count_file,
+                                           cut_pieces, finish_pair,
+                                           split_pieces, stream_count_file,
                                            stream_positions_file)
 # compact_valrows stays importable here, beside the JAX package's
 from tpu_smatcher_torch.ops.compaction import (  # noqa: F401
@@ -224,6 +225,21 @@ def stages_for_block(ft: FastTables, block_positions: int,
             return len(ft.bitmaps) + 1
         k += 1
     return k
+
+
+def slot_stages(ft: FastTables, k: int) -> int | None:
+    """The slot route's stage count for a scan that needs k stages
+    (stages_for): at least the per-block budget's (stages_for_block), or
+    None where the route is infeasible: the exact tier, a budget no built
+    prefix meets, or one whose extra stages cost more than the mask
+    pipeline's whole overhead (48 in the JAX router's bank-gather units,
+    B = stage_bits/4096 a stage; fitted on the TPU)."""
+    if ft.exact:
+        return None
+    kb = stages_for_block(ft, SLOT_BLOCK)
+    if kb <= len(ft.bitmaps) and (kb - k) * (ft.stage_bits // 4096) <= 48:
+        return max(k, kb)
+    return None
 
 
 def _phase1_depth(fills, stage_bits: int, lam_row: float = 4.0):
@@ -760,16 +776,15 @@ class FastScanner:
         JAX package's cost model in its bank-gather units (fitted on the
         TPU; kept until the port refits them): slot k_s*B + 8, mask
         k*B + 55, cascade k1*B + 11 + (kt-k1)*B/8 + 8, with B =
-        stage_bits/4096.  The slot route needs a reachable per-block
-        budget, the cascade a phase-1 split; the mask route is always
-        feasible."""
+        stage_bits/4096.  The slot route needs slot_stages, the cascade a
+        phase-1 split; the mask route is always feasible."""
         ft = self.ft
         nb = len(ft.bitmaps)
         B = ft.stage_bits // 4096
-        kb = stages_for_block(ft, SLOT_BLOCK)
         costs = {"mask": (k * B + 55, None, k)}
-        if kb <= nb and (kb - k) * B <= 48:
-            ks = min(max(k, kb) + self._k_extra, nb)
+        ks = slot_stages(ft, k)
+        if ks is not None:
+            ks = min(ks + self._k_extra, nb)
             costs["slot"] = (ks * B + 8, None, ks)
         k1 = k1_for(ft)
         if k1 is not None and nb >= 2:
@@ -877,28 +892,8 @@ class FastScanner:
         k = stages_for(ft, n, self.cap)
         if n * ft.density ** k > self.cap / 4 and k >= len(ft.bitmaps):
             # every built stage together still misses the candidate budget
-            # (saturated tables): scan in (m-1)-halo pieces sized to it, on
-            # the dense pass, 3 in flight; a piece that overflows is
-            # finished by _count_chunked, never by re-entering this branch
-            piece = int(max((self.cap / 4) / max(ft.density ** k, 1e-12),
-                            self.cap // 2))
-            piece = min(piece, n)
-            total, inflight = 0, []
-
-            def drain(item):
-                pt, co_d = item
-                c, o = co_d.tolist()
-                return self._count_chunked(pt) if o else c
-
-            for s in range(0, n - ft.m + 1, piece):
-                pt = text[s:min(s + piece + ft.m - 1, n)]
-                c_d, o_d = self._device_count_dense(pt)
-                inflight.append((pt, torch.stack([c_d, o_d])))
-                if len(inflight) >= 3:
-                    total += drain(inflight.pop(0))
-            for item in inflight:
-                total += drain(item)
-            return total, False
+            # (saturated tables): the dense pass over pieces sized to it
+            return self._count_chunked(text), False
         return self._count_pallas_whole(text, k)
 
     def _count_pallas_whole(self, text, k) -> tuple[int, bool]:
@@ -920,34 +915,24 @@ class FastScanner:
             return self._count_chunked(text)
         return c
 
-    def _count_chunked(self, text, *, depth: int = 4) -> int:
-        """Exact count in (m-1)-halo pieces, `depth` in flight, splitting
-        any piece that overflows; pieces of <= cap/4 starts cannot (the
-        dense pass runs them at the full cap and 128 row slots)."""
+    def _count_chunked(self, text) -> int:
+        """Exact count of the dense core over (m-1)-halo pieces sized to
+        the candidate budget of the built stages (one piece unless the
+        tables are saturated), split on overflow (common.split_pieces);
+        pieces of <= cap/4 starts cannot overflow (the dense pass runs them
+        at the full cap and 128 row slots)."""
         n = int(text.shape[0])
         m = self.m
-        min_chunk = max(self.cap // 4, 1)
         fn = self._dense_core()
-        work = [(0, n - m + 1)]
-        inflight, total = [], 0
-        while work or inflight:
-            while work and len(inflight) < depth:
-                start, owned = work.pop()
-                c_d, o_d = fn(text[start:min(start + owned + m - 1, n)])
-                inflight.append((start, owned, torch.stack([c_d, o_d])))
-            start, owned, co_d = inflight.pop(0)
-            c, o = co_d.tolist()
-            if o:
-                if owned <= min_chunk:
-                    raise AssertionError(
-                        "count piece overflowed below the guaranteed size "
-                        "— this is a bug")
-                half = max(min_chunk, owned // 2)
-                for s in range(start, start + owned, half):
-                    work.append((s, min(half, start + owned - s)))
-            else:
-                total += c
-        return total
+        dk = self.ft.density ** stages_for(self.ft, n, self.cap)
+        piece = int(max((self.cap / 4) / max(dk, 1e-12), self.cap // 2))
+
+        def launch(start, owned):
+            return torch.stack(fn(text[start:min(start + owned + m - 1, n)]))
+
+        work = cut_pieces(0, n - m + 1, piece)
+        return sum(c for _, _, c in split_pieces(
+            work, launch, finish_pair, min_chunk=max(self.cap // 4, 1)))
 
     def _async_retry(self, text) -> int:
         """ScanFuture's overflow fallback: count exactly through the sync
@@ -1110,58 +1095,46 @@ class FastScanner:
 
     def _drive(self, t, piece_fn, on_piece, *, chunk=None, depth: int = 4,
                to_host: bool = True):
-        """The split-on-overflow piece pipeline of positions and
-        attribution.  Pieces of owned starts (plus the m-1 halo) go through
-        piece_fn (device outputs..., overflow), up to `depth` in flight; a
-        piece that overflowed is split: after the first overflow of the
-        whole text into pieces sized from its match density, else in
-        halves.  Pieces of <= cap/2 starts cannot overflow, and one that
-        does raises AssertionError.  on_piece(start, *outputs) gets every
-        other piece, its outputs as numpy (read back with the flag, one
-        read per piece) or, with to_host=False, as device tensors (only the
-        flag is read)."""
+        """Positions and attribution through the split-on-overflow piece
+        pipeline (common.split_pieces).  Pieces of owned starts (plus the
+        m-1 halo) go through piece_fn (device outputs..., overflow); pieces
+        of <= cap/2 starts cannot overflow.  The pieces start presized to
+        chunk= starts, or as the whole text: if that overflows, its pieces
+        are sized from its match density (one count()) and then halved on
+        overflow.  on_piece(start, *outputs) gets every piece that did not
+        overflow, its outputs as numpy (read back with the flag, one read
+        per piece) or, with to_host=False, as device tensors (only the flag
+        is read)."""
         n = int(t.shape[0])
         m = self.m
-        total_starts = n - m + 1
+        total = n - m + 1
         min_chunk = max(self.cap // 2, 1)
-        if chunk is None:
-            work = [(0, total_starts)]
-        else:
-            chunk = max(int(chunk), min_chunk)
-            work = [(s, min(chunk, total_starts - s))
-                    for s in range(0, total_starts, chunk)]
-        work.reverse()                    # pop() scans in text order
-        inflight = []
-        guess = None                      # piece size after the 1st overflow
-        while work or inflight:
-            while work and len(inflight) < depth:
-                start, owned = work.pop()
-                *outs, o = piece_fn(t[start:min(start + owned + m - 1, n)])
-                read = (*outs, o) if to_host else (o,)
-                flat = torch.cat([x.to(torch.int64).reshape(-1)
-                                  for x in read])
-                inflight.append((start, owned, outs, flat))
-            start, owned, outs, flat = inflight.pop(0)
+
+        def launch(start, owned):
+            *outs, o = piece_fn(t[start:min(start + owned + m - 1, n)])
+            read = (*outs, o) if to_host else (o,)
+            return outs, torch.cat([x.to(torch.int64).reshape(-1)
+                                    for x in read])
+
+        def finish(handle):
+            outs, flat = handle
             flat = flat.cpu().numpy()
-            if flat[-1]:
-                if owned <= min_chunk:
-                    raise AssertionError(
-                        "positions piece overflowed below the guaranteed "
-                        "size — this is a bug")
-                if guess is None and owned == total_starts:
-                    total = max(self.count(t), 1)
-                    guess = int(max(min_chunk,
-                                    min(owned // 2,
-                                        (self.cap // 2) * owned // total)))
-                split = max(min_chunk, min(guess or owned // 2, owned // 2))
-                # reversed, so pop() takes the split pieces in text order
-                work.extend(reversed([(s, min(split, start + owned - s))
-                                      for s in range(start, start + owned,
-                                                     split)]))
-                continue
             if to_host:
                 outs = np.split(flat[:-1],
                                 np.cumsum([x.numel() for x in outs])[:-1])
+            return bool(flat[-1]), outs
+
+        size = total if chunk is None else max(int(chunk), min_chunk)
+        if size >= total > min_chunk:
+            overflowed, outs = finish(launch(0, total))
+            if not overflowed:
+                on_piece(0, *outs)
+                return
+            size = max(min_chunk, min(-(-total // 2), (self.cap // 2) * total
+                                      // max(self.count(t), 1)))
+        for start, _, outs in split_pieces(
+                cut_pieces(0, total, size), launch, finish,
+                min_chunk=min_chunk, depth=depth):
             on_piece(start, *outs)
 
     def positions(self, text, *, chunk: int | None = None,

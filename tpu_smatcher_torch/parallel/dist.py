@@ -44,8 +44,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from tpu_smatcher_torch.ops.common import check_count32
-from tpu_smatcher_torch.parallel.mesh import DATA_AXIS, Mesh, shard_text
+from tpu_smatcher_torch.ops.common import (check_count32, cut_pieces,
+                                           finish_pair, split_pieces)
+from tpu_smatcher_torch.parallel.mesh import Mesh, shard_text
 from tpu_smatcher_torch.utils.profiling import span
 
 
@@ -231,13 +232,12 @@ class DistributedCounter:
     Every rank must make the same calls in the same order (SPMD)."""
 
     def __init__(self, core_fn, mesh: Mesh, *, m: int, sigma: int,
-                 axis: str = DATA_AXIS, fast=None):
+                 fast=None):
         """fast: optional FastScanner over the same pattern set: the exact
         distributed OVERFLOW LADDER (a dense per-shard pass, then
         budget-sized pieces; every engine counts the same windows, so the
         fast tables are a valid fallback for any core).  Without it a shard
-        overflow raises (the portable cores never overflow).  `axis` is
-        ignored (mesh.DATA_AXIS)."""
+        overflow raises (the portable cores never overflow)."""
         self.mesh = mesh
         self._core_fn = core_fn
         self.m = m
@@ -296,33 +296,19 @@ class DistributedCounter:
             return int(c)
         return self._count_pieces(sh)
 
-    def _count_pieces(self, sh: _Sharded, *, depth: int = 4) -> int:
+    def _count_pieces(self, sh: _Sharded) -> int:
         """Ladder step 2: every rank scans its shard in (owned + halo)
-        pieces at the same offsets, `depth` in flight; each piece's
+        pieces at the same offsets (common.split_pieces); each piece's
         (count, overflow) is all-reduced, so every rank splits the same
         pieces."""
         dense = self.fast._dense_core()
-        min_chunk = max(self.fast.cap // 4, 1)
-        work = sh.spans()[::-1]
-        inflight, total = [], 0
-        while work or inflight:
-            while work and len(inflight) < depth:
-                off, owned = work.pop()
-                inflight.append((off, owned,
-                                 _all_reduce(sh.count(dense, off, owned))))
-            off, owned, co = inflight.pop(0)
-            c, o = co.tolist()
-            if o:
-                if owned <= min_chunk:
-                    raise AssertionError(
-                        "distributed count piece overflowed below the "
-                        "guaranteed size — this is a bug")
-                split = max(min_chunk, -(-owned // 2))
-                for s in range(off, off + owned, split):
-                    work.append((s, min(split, off + owned - s)))
-            else:
-                total += c
-        return total
+
+        def launch(off, owned):
+            return _all_reduce(sh.count(dense, off, owned))
+
+        return sum(c for _, _, c in split_pieces(
+            sh.spans(), launch, finish_pair,
+            min_chunk=max(self.fast.cap // 4, 1)))
 
 
 class DistributedPositions:
@@ -337,9 +323,9 @@ class DistributedPositions:
     fills its row with its positions + 1 and its overflow flag: every rank
     learns every position, and every rank splits a piece that overflowed on
     some rank (pieces of <= cap/2 starts cannot).  Every rank returns the
-    same sorted int64 array.  `axis` is ignored (mesh.DATA_AXIS)."""
+    same sorted int64 array."""
 
-    def __init__(self, fast, mesh: Mesh, *, axis: str = DATA_AXIS):
+    def __init__(self, fast, mesh: Mesh):
         self.fast = fast
         self.mesh = mesh
         self.m = fast.m
@@ -370,29 +356,17 @@ class DistributedPositions:
         work = sh.spans()
         if chunk is not None:
             chunk = max(int(chunk), min_chunk)
-            work = [(s, min(chunk, lo + c - s)) for lo, c in work
-                    for s in range(lo, lo + c, chunk)]
-        work.reverse()
-        inflight, out = [], []
-        while work or inflight:
-            while work and len(inflight) < depth:
-                off, owned = work.pop()
-                inflight.append((off, owned, self._piece(sh, off, owned)))
-            off, owned, buf = inflight.pop(0)
+            work = [p for lo, c in work for p in cut_pieces(lo, c, chunk)]
+
+        def launch(off, owned):
+            return self._piece(sh, off, owned)
+
+        def finish(buf):
             b = buf.cpu().numpy()
-            if b[:, cap].any():
-                if owned <= min_chunk:
-                    raise AssertionError(
-                        "distributed positions piece overflowed below the "
-                        "guaranteed size — this is a bug")
-                split = max(min_chunk, -(-owned // 2))
-                for s in range(off, off + owned, split):
-                    work.append((s, min(split, off + owned - s)))
-                continue
-            pos = b[:, :cap]
-            pos = pos[pos > 0] - 1
-            if pos.size:
-                out.append(pos)
+            return bool(b[:, cap].any()), b[:, :cap]
+
+        out = [pos[pos > 0] - 1 for _, _, pos in split_pieces(
+            work, launch, finish, min_chunk=min_chunk, depth=depth)]
         if not out:
             return np.empty((0,), np.int64)
         return np.sort(np.concatenate(out))

@@ -22,11 +22,6 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-#: the JAX package's mesh axis name.  The port's layout is the 1-D process
-#: group: the `axis` arguments below exist for the JAX package's
-#: signatures and are ignored
-DATA_AXIS = "data"
-
 #: the process group's timeout: a rank that dies or hangs makes the others
 #: raise after this long instead of waiting forever
 DEFAULT_TIMEOUT = datetime.timedelta(seconds=300)
@@ -68,15 +63,13 @@ def rank_device(device, rank: int) -> torch.device:
     return dev
 
 
-def make_mesh(n_devices: int | None = None, axis: str = DATA_AXIS, *,
-              device="cuda") -> Mesh:
+def make_mesh(n_devices: int | None = None, *, device="cuda") -> Mesh:
     """The layout over the default process group, this rank on `device`
     (rank_device).  Without a group, starts a one-rank group (NCCL on the
     card, gloo on the CPU) over an in-memory store; collectives then run at
     world size 1 like at any other.  n_devices, when given, must equal the
     world size: ranks are processes, started by torchrun, by
-    multihost.init_distributed or by the CLI's --devices.  `axis` is
-    ignored (DATA_AXIS)."""
+    multihost.init_distributed or by the CLI's --devices."""
     if not dist.is_initialized():
         if n_devices not in (None, 1):
             raise ValueError(
@@ -101,7 +94,7 @@ def make_mesh(n_devices: int | None = None, axis: str = DATA_AXIS, *,
     return Mesh(rank, k, dev, backend)
 
 
-def shard_text(text, mesh: Mesh, *, sigma: int, axis: str = DATA_AXIS):
+def shard_text(text, mesh: Mesh, *, sigma: int):
     """This rank's shard of a text every rank holds: per = ceil(n/k) bytes
     at offset rank*per, on the rank's device, right-padded to per bytes.
 
@@ -110,7 +103,7 @@ def shard_text(text, mesh: Mesh, *, sigma: int, axis: str = DATA_AXIS):
     out-of-alphabet byte exists: the pad is 0, and the distributed layer
     counts only the starts before n - m + 1 (parallel/dist.py).
 
-    Returns (shard, original length).  `axis` is ignored (DATA_AXIS)."""
+    Returns (shard, original length)."""
     k = mesh.size
     if isinstance(text, torch.Tensor):
         src = text
@@ -126,10 +119,3 @@ def shard_text(text, mesh: Mesh, *, sigma: int, axis: str = DATA_AXIS):
                        dtype=torch.uint8, device=mesh.device)
     shard[:hi - lo] = src[lo:hi].to(mesh.device)
     return shard, n
-
-
-def replicated(arr, mesh: Mesh) -> torch.Tensor:
-    """arr on this rank's device: every rank holds the whole table."""
-    if isinstance(arr, torch.Tensor):
-        return arr.to(mesh.device)
-    return torch.as_tensor(np.asarray(arr)).to(mesh.device)

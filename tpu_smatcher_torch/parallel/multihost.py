@@ -26,8 +26,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from tpu_smatcher_torch.parallel.mesh import (DATA_AXIS, DEFAULT_TIMEOUT,
-                                              Mesh, pick_backend)
+from tpu_smatcher_torch.parallel.mesh import (DEFAULT_TIMEOUT, Mesh,
+                                              pick_backend)
 
 
 def init_distributed(coordinator_address: str | None = None,
@@ -67,7 +67,7 @@ def init_distributed(coordinator_address: str | None = None,
 
 
 def load_corpus_shards(path: str, mesh: Mesh, *, sigma: int,
-                       axis: str = DATA_AXIS, n: int | None = None):
+                       n: int | None = None):
     """This rank's shard of the corpus file at `path`, read from its own
     byte range only, on the rank's device.
 
@@ -75,8 +75,7 @@ def load_corpus_shards(path: str, mesh: Mesh, *, sigma: int,
     right-padded with the out-of-alphabet symbol sigma (pad windows never
     match); for the byte alphabet (sigma = 256) the pad is 0, and the
     returned corpus length must go to DistributedCounter.count(n=...) so
-    that only the valid starts count.  Returns (shard, corpus length).
-    `axis` is ignored (mesh.DATA_AXIS)."""
+    that only the valid starts count.  Returns (shard, corpus length)."""
     file_n = os.path.getsize(path)
     if n is None:
         n = file_n
