@@ -196,10 +196,6 @@ SWEEP_PIPELINE = 16
 S256_N = 64 * MiB - 3
 #: the ladder's step-2 cell: 'A'*16 over an all-'A' text at cap 1024
 ALL_MATCH_N, ALL_MATCH_CAP = 2 * MiB, 1024
-#: the cascade's run (consecutive starts per thread) and tile (starts per
-#: block iteration; the exact kernels' are kernel_cases'): the kernel checks
-#: take start counts around both
-CASCADE_RUN, CASCADE_TILE = 16, 4096
 #: filter.cu's run and tile (one 16,384-start sub-block)
 FILTER_RUN, FILTER_TILE = 32, 16384
 
@@ -811,6 +807,7 @@ def stage_edge_checks(ck):
 def kernel_checks():
     import numpy as np
     from tpu_smatcher_torch.core import datagen
+    from tpu_smatcher_torch import kernel_cases as kc
     from tpu_smatcher_torch.kernel_cases import (EXACT_RUN, EXACT_TILE,
                                                  edge_starts, random_stages)
     from tpu_smatcher_torch.core.alphabet import Alphabet
@@ -876,8 +873,8 @@ def kernel_checks():
     dense_pats = PatternSet(codes, pats.alphabet)
     ck.cascade("match-dense", dense_text, dense_pats, stage_bits=32768,
                want_ovf=1)
-    text, pats = case(4, 3 * CASCADE_TILE + 64, 32, 3000, seed=11)
-    for s in edge_starts(CASCADE_RUN, CASCADE_TILE):     # run and tile edges
+    text, pats = case(4, 3 * kc.CASCADE_TILE + 64, 32, 3000, seed=11)
+    for s in kc.cascade_edge_starts():              # run, row and tile edges
         ck.cascade(f"{s} starts", text[:31 + s].copy(), pats)
     text, pats = case(256, MiB + 3, 16, 10_000, seed=12)
     ck.cascade("sigma=256", text, pats)

@@ -33,11 +33,6 @@ def cuda():
     return torch.device("cuda")
 
 
-#: the cascade's run (starts per thread) and tile (starts per block
-#: iteration)
-CASCADE_RUN, CASCADE_TILE = 16, 4096
-
-
 @pytest.mark.parametrize("sigma,m,p", [(2, 8, 16), (2, 16, 16), (4, 8, 200),
                                        (4, 1, 2), (256, 2, 200)])
 def test_exact_kernel_matches_plain(cuda, sigma, m, p):
@@ -92,7 +87,7 @@ def test_cascade_kernel_matches_plain(cuda, m, sigma):
     counts around a run and a tile."""
     text, pats = make_case(sigma, m, 3000, 200_003, seed=m)
     assert _check_cascade(cuda, text, pats) == 0
-    for s in edge_starts(CASCADE_RUN, CASCADE_TILE):
+    for s in kc.cascade_edge_starts():
         _check_cascade(cuda, text[:m - 1 + s].copy(), pats)
 
 
@@ -108,7 +103,7 @@ def test_cascade_kernel_on_wide_stages_matches_plain(cuda, m, k1):
     bitmaps = torch.from_numpy(random_stages(kt, 131072, 0.8, seed=k1)).to(
         cuda)
     rng = np.random.default_rng(m)
-    text = rng.integers(0, 256, m - 1 + 2 * CASCADE_TILE + 77).astype(
+    text = rng.integers(0, 256, m - 1 + 2 * kc.CASCADE_TILE + 77).astype(
         np.uint8)
     t = torch.from_numpy(text).to(cuda)
     args = dict(m=m, k1=k1, cd=tfast.STAGE_CD[:kt])
@@ -175,7 +170,7 @@ def test_cascade_kernel_after_a_smaller_large_launch(cuda):
     kernel's shared-memory limit, so the third must raise it again even
     though its grid size is known from the first."""
     rng = np.random.default_rng(3)
-    t = torch.from_numpy(rng.integers(0, 4, 3 * CASCADE_TILE).astype(
+    t = torch.from_numpy(rng.integers(0, 4, 3 * kc.CASCADE_TILE).astype(
         np.uint8)).to(cuda)
     wide = torch.from_numpy(random_stages(14, 131072, 0.8, seed=1)).to(cuda)
     mid = torch.from_numpy(random_stages(13, 32768, 0.8, seed=2)).to(cuda)
@@ -186,6 +181,47 @@ def test_cascade_kernel_after_a_smaller_large_launch(cuda):
         torch.cuda.synchronize()
         ps, po = cf.cascade_plain(t, bitmaps, **args)
         assert torch.equal(slots, ps) and int(ovf) == int(po)
+
+
+#: phase-1 stages (131,072 bits each) and their fill for each of the
+#: cascade's shapes: a p=10k table's two (one thread a row), p=100k's six
+#: (96 KB: two threads a row), fourteen (224 KB, past shared memory: read
+#: through the read-only cache)
+CASCADE_SHAPES = {"row": (2, 0.073), "half_row": (6, 0.53),
+                  "past_shared": (14, 0.53)}
+
+
+@pytest.mark.parametrize("m", [1, 15, 16, 17, 32, 33, 4097])
+@pytest.mark.parametrize("shape", sorted(CASCADE_SHAPES))
+def test_cascade_kernel_shapes_match_plain(cuda, shape, m):
+    """At each shape, slots and ovf equal the plain version's bit for bit
+    on start counts around the runs, rows and tiles, on a view at an odd
+    address, and with rows of more than 16 phase-1 survivors: a run of zero
+    bytes over a tile edge, whose windows all have the fingerprints 0, and
+    bit 0 set in every stage, so that each of its starts passes."""
+    k1, fill = CASCADE_SHAPES[shape]
+    kt = k1 + 2
+    stages = random_stages(kt, 131072, fill, seed=k1 + m)
+    stages[:, 0] |= 1
+    bitmaps = torch.from_numpy(stages).to(cuda)
+    starts = kc.cascade_edge_starts()
+    rng = np.random.default_rng(m)
+    text = rng.integers(0, 4, m + 16 + max(starts)).astype(np.uint8)
+    zeros = slice(kc.CASCADE_TILE - 300, kc.CASCADE_TILE + 300 + m)
+    text[zeros] = 0
+    full = torch.from_numpy(text).to(cuda)
+    args = dict(m=m, k1=k1, cd=tfast.STAGE_CD[:kt])
+    views = [full[:m - 1 + s] for s in starts] + [full[1:]]
+    assert views[-1].data_ptr() % 2
+    for t in views:
+        before = cf.LAUNCHES["cascade"]
+        slots, ovf = cf.cascade(t, bitmaps, **args)
+        torch.cuda.synchronize()
+        assert cf.LAUNCHES["cascade"] == before + 1
+        ps, po = cf.cascade_plain(t, bitmaps, **args)
+        assert torch.equal(slots, ps) and int(ovf) == int(po)
+        if int(t.shape[0]) - m + 1 > zeros.start + 16:   # 17 zero windows
+            assert int(ovf) == 1
 
 
 def test_cascade_kernel_overflow_matches_plain(cuda):

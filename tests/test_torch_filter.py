@@ -173,7 +173,7 @@ def _rolling_wids(text, m, bits, run):
 @pytest.mark.parametrize("sigma", [4, 256])
 def test_rolling_recurrences_match_keys(sigma, m):
     """The redesigned kernels' recurrences, mirrored in numpy over runs of
-    16 (cascade) and 32 (exact count) starts on a text whose start count is
+    128 (cascade) and 32 (exact count) starts on a text whose start count is
     a multiple of neither, equal the port's and the JAX package's key
     functions: the three base fingerprints for every m, the window ids where
     the exact tier takes m (m*bits <= 16), on in-alphabet bytes and with
@@ -186,7 +186,7 @@ def test_rolling_recurrences_match_keys(sigma, m):
                                  for mult in tkeys.FP_MULTS[:3]])
     want = jax_fps(jnp.asarray(text.astype(np.int32)))
     for mult, jwant in zip(tkeys.FP_MULTS[:3], want):
-        got = _rolling_fps(text, m, mult, 16)
+        got = _rolling_fps(text, m, mult, kc.CASCADE_RUN)
         assert np.array_equal(got, tkeys.fp_keys(torch.from_numpy(text), m,
                                                  mult)[:n_starts])
         assert np.array_equal(got, np.asarray(jwant)[:n_starts])

@@ -34,6 +34,11 @@ from .ops.fast import STAGE_CD, build_fast
 #: block iteration, one slot sub-block); exact_count.cu's
 STAGES_RUN, STAGES_TILE = 32, 16384
 EXACT_RUN, EXACT_TILE = 32, 8192
+#: cascade.cu's run (consecutive starts per thread: one 128-start row) and
+#: its tile (starts per block iteration) at both of its shapes: a p=10k
+#: table's two 131,072-bit phase-1 stages (256 threads, a row each) and
+#: p=100k's six (512 threads, two a row: runs of CASCADE_RUN // 2)
+CASCADE_RUN, CASCADE_TILE = 128, 32768
 #: starts of a positions piece on the bench corpus (FastScanner._drive:
 #: cap/2 = 32,768 matches at the exact tier's density of 0.142), rounded
 EXACT_PIECE = 1 << 18
@@ -63,6 +68,13 @@ def edge_starts(run, tile):
     and its tile of starts per block iteration."""
     return sorted({run - 1, run, run + 1, tile - 1, tile, tile + 1,
                    2 * tile + run + 1})
+
+
+def cascade_edge_starts():
+    """Start counts around the cascade's runs, rows and tiles: at one
+    thread a row and at two."""
+    return sorted(set(edge_starts(CASCADE_RUN, CASCADE_TILE))
+                  | set(edge_starts(CASCADE_RUN // 2, CASCADE_TILE)))
 
 
 def plant_oob(text, sigma, seed, span=None):
