@@ -808,8 +808,9 @@ def kernel_checks():
     import numpy as np
     from tpu_smatcher_torch.core import datagen
     from tpu_smatcher_torch import kernel_cases as kc
-    from tpu_smatcher_torch.kernel_cases import (EXACT_RUN, EXACT_TILE,
-                                                 edge_starts, random_stages)
+    from tpu_smatcher_torch.kernel_cases import (EXACT_PAIR_TILE,
+                                                 exact_edge_starts,
+                                                 random_stages)
     from tpu_smatcher_torch.core.alphabet import Alphabet
     from tpu_smatcher_torch.core.patterns import PatternSet
 
@@ -832,8 +833,8 @@ def kernel_checks():
     # start counts around a run and a tile, m=1, sigma=256, and a text at
     # an odd address (staged from the aligned address below it)
     for sigma, m, p in ((4, 8, 200), (4, 1, 2), (256, 2, 200)):
-        text, pats = case(sigma, 3 * EXACT_TILE, m, p, seed=sigma + m)
-        for s in edge_starts(EXACT_RUN, EXACT_TILE):
+        text, pats = case(sigma, 3 * EXACT_PAIR_TILE, m, p, seed=sigma + m)
+        for s in exact_edge_starts():
             ck.exact(f"sigma={sigma} {s} starts", text[:m - 1 + s].copy(),
                      pats)
         text, pats = case(sigma, 4 * MiB + 5, m, p, seed=sigma + m)
@@ -2872,6 +2873,8 @@ def main() -> int:
     size_weighted(total, scanned, per_kernel, chains, chain_times)
     log("launches on texts at addresses not 16-byte aligned: " + ", ".join(
         f"{k} {unaligned[k]} of {total[k]}" for k in total if total[k]))
+    from tpu_smatcher_torch.ops import cuda_filter as cf
+    log(f"exact kernel launches by path since the start: {cf.EXACT_PATHS}")
 
     kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
                 "launches": total[k], "max_abs_err": ck.max_err[k],

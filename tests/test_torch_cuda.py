@@ -19,6 +19,7 @@ from tpu_smatcher_torch.core import datagen
 from tpu_smatcher_torch.ops import cuda_engines as ce
 from tpu_smatcher_torch.ops import cuda_filter as cf
 from tpu_smatcher_torch.ops import fast as tfast
+from tpu_smatcher_torch.ops.common import bits_per_char
 
 from torch_cases import (CASES, dense_case, edge_starts, make_case,
                          random_stages, wide_case)
@@ -42,9 +43,7 @@ def test_exact_kernel_matches_plain(cuda, sigma, m, p):
     (staged from the aligned address below it)."""
     text, pats = make_case(sigma, m, p, 300_007, seed=3 * sigma + m)
     bm = tfast.build_fast(pats.codes, sigma, device=cuda).bitmaps[0]
-    ns = [m, 127, 300_007] + [m - 1 + s
-                              for s in edge_starts(kc.EXACT_RUN,
-                                                 kc.EXACT_TILE)]
+    ns = [m, 127, 300_007] + [m - 1 + s for s in kc.exact_edge_starts()]
     for n in ns:
         t = torch.from_numpy(text[:n].copy()).to(cuda)
         before = cf.LAUNCHES["exact_count"]
@@ -668,17 +667,23 @@ def test_exact_kernels_at_edges_match_plain(cuda, sigma, m):
     bytes >= sigma planted (at sigma = 20 also bytes in [20, 32), which
     the guard drops and the rolling id takes as clean), a random bitmap.
     Each mask sums to the guarded count; the guard drops windows wherever
-    sigma < 256."""
+    sigma < 256.  Each launch counts once in EXACT_PATHS, on the path
+    exact_pairs names (the pair table up to 18 bits of (m+1)-gram)."""
     views, bm = kc.exact_edge_case(sigma, m, cuda)
+    path = "pairs" if cf.exact_pairs(m, bits_per_char(sigma),
+                                     int(bm.shape[0])) else "bitmap"
+    assert (path == "pairs") == ((sigma, m) not in [(20, 3), (256, 2)])
     dropped = 0
     for t in views:
-        before = dict(cf.LAUNCHES)
+        before, paths = dict(cf.LAUNCHES), dict(cf.EXACT_PATHS)
         mask = cf.exact_mask(t, bm, m=m, sigma=sigma)
         guarded = cf.exact_count(t, bm, m=m, sigma=sigma, guard=True)
         unguarded = cf.exact_count(t, bm, m=m, sigma=sigma)
         torch.cuda.synchronize()
         for name in ("exact_mask", "exact_count_guard", "exact_count"):
             assert cf.LAUNCHES[name] == before[name] + 1, name
+        assert {k: v - paths[k] for k, v in cf.EXACT_PATHS.items()
+                if v != paths[k]} == {path: 3}
         assert torch.equal(mask, cf.exact_mask_plain(t, bm, m=m, sigma=sigma))
         assert int(guarded) == int(mask.sum()) == int(cf.exact_count_plain(
             t, bm, m=m, sigma=sigma, guard=True))
@@ -686,6 +691,54 @@ def test_exact_kernels_at_edges_match_plain(cuda, sigma, m):
                                                           sigma=sigma))
         dropped += int(unguarded) - int(guarded)
     assert (dropped > 0) == (sigma < 256)
+
+
+#: (sigma, m, bitmap bits): the pair path at its widest grams (18 bits at
+#: DNA m = 8, sigma 8 m = 5 and sigma 64 m = 2; 17 at sigma 2 m = 16; 16 at
+#: sigma 256 m = 1), a bitmap smaller than the id space (the bitmap path,
+#: every run a per-start one) and a gram of 20 bits (the bitmap path)
+EXACT_PAIR_CASES = [(4, 8, 65536), (8, 5, 32768), (64, 2, 4096),
+                    (2, 16, 65536), (256, 1, 4096), (4, 8, 4096),
+                    (20, 3, 32768)]
+
+
+@pytest.mark.parametrize("sigma,m,nbits", EXACT_PAIR_CASES)
+def test_exact_pair_path_matches_plain(cuda, sigma, m, nbits):
+    """The three exact modes equal their plain versions bit for bit over
+    texts of one to three tiles a block of the persistent grid (start
+    counts around a block's last tile, a tile and a run past a whole
+    number of tiles a block), random bytes with the pad symbol and 255
+    planted, and over one view at an odd address; each launch counts once
+    in EXACT_PATHS on the path exact_pairs names."""
+    bits = bits_per_char(sigma)
+    bm = torch.from_numpy(random_stages(1, nbits, 0.4, seed=m)[0]).to(cuda)
+    path = "pairs" if cf.exact_pairs(m, bits, nbits // 32) else "bitmap"
+    assert (path == "pairs") == (nbits >= 1 << (m * bits) and sigma != 20)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    tile = kc.EXACT_PAIR_TILE if path == "pairs" else kc.EXACT_TILE
+    rng = np.random.default_rng(sigma * m)
+    for starts in (sms * tile - 1, 2 * sms * tile + 33,
+                   3 * sms * tile + tile + 1):
+        text = rng.integers(0, sigma, starts + m + 8).astype(np.uint8)
+        if sigma < 256:
+            at = rng.integers(0, len(text), len(text) // 512)
+            text[at[::2]] = sigma
+            text[at[1::2]] = 255
+        full = torch.from_numpy(text).to(cuda)
+        for t in (full[:starts + m - 1], full[3:starts + m - 1]):
+            paths = dict(cf.EXACT_PATHS)
+            mask = cf.exact_mask(t, bm, m=m, sigma=sigma)
+            guarded = cf.exact_count(t, bm, m=m, sigma=sigma, guard=True)
+            unguarded = cf.exact_count(t, bm, m=m, sigma=sigma)
+            torch.cuda.synchronize()
+            assert {k: v - paths[k] for k, v in cf.EXACT_PATHS.items()
+                    if v != paths[k]} == {path: 3}
+            assert torch.equal(mask, cf.exact_mask_plain(t, bm, m=m,
+                                                         sigma=sigma))
+            assert int(guarded) == int(mask.sum()) == int(
+                cf.exact_count_plain(t, bm, m=m, sigma=sigma, guard=True))
+            assert int(unguarded) == int(cf.exact_count_plain(
+                t, bm, m=m, sigma=sigma))
 
 
 @pytest.mark.parametrize("sigma,m,p_size,n", [CASES[2], CASES[3]])

@@ -36,12 +36,66 @@ from tpu_smatcher_torch.ops import cuda_filter as cf
 from tpu_smatcher_torch.ops import fast as tfast
 from tpu_smatcher_torch.ops.common import bits_per_char
 
-from test_torch_filter_mirror import _tile_buffers, mask_stores
+from test_torch_exact_pairs import build_pairs
+from test_torch_filter_mirror import (BEFORE, M32, _byte_of, _tile_buffers,
+                                      _words_at, mask_stores)
 from test_torch_positions import EXACT_INPUTS
 from test_torch_stages_mirror import guard_run, wid_run
 
-RUN, TILE = kc.EXACT_RUN, kc.EXACT_TILE
+RUN = kc.EXACT_RUN
 U1 = np.uint64(1)
+#: the pair run's window bytes before the run's first entering byte
+LEAD = 16
+
+
+def pair_run(bufs, t, p, s, m, bits, bitmap, thr):
+    """exact_count.cu's pair_run: a window of 48 bytes from the run's byte
+    m-1-LEAD (12 words from four aligned 16-byte loads; bytes before the
+    buffer are shared memory the kernel does not own, junk here); a run with
+    a byte >= 2^bits at or past its byte 0 takes wid_run; else the id rolls
+    over the window's bytes 8..15 (0..15 for m > 9) and then two bytes a
+    pair, and one lookup in the kernel's pair table for starts j and j+1,
+    the word rotated right by 2*key - j so that the entry's two bits land
+    at bits j, j+1 of the hit mask.  thr >= 0: the guard from
+    the same window, the window's bytes >= thr as 48 bits, shifted to the
+    run's byte 0 and smeared over the m starts whose window holds each."""
+    radix = np.uint64(1 << bits)
+    tab = build_pairs(bitmap, m, bits)
+    twm = np.uint64(len(tab) - 1)
+    junk = np.full((bufs.shape[0], LEAD), BEFORE, np.uint8)
+    padded = np.concatenate([junk, bufs], axis=1)
+    x = p + m - 1 - LEAD
+    w = _words_at(padded, t, x + LEAD, (s + m - 1 - LEAD) & 15, 12)
+    dirty = np.zeros(len(p), bool)
+    for j in range(LEAD + 1 - m, LEAD + RUN):
+        dirty |= (_byte_of(w, j) >> np.uint64(bits)) != 0
+    key = np.zeros(len(p), np.uint64)
+    for j in range(0 if m > LEAD // 2 + 1 else LEAD // 2, LEAD):
+        key = (key * radix + _byte_of(w, j)) & M32
+    hits = np.zeros(len(p), np.uint64)
+    for j in range(0, RUN, 2):
+        for i in (j, j + 1):
+            key = (key * radix + _byte_of(w, LEAD + i)) & M32
+        e = tab[((key >> np.uint64(4)) & twm).astype(np.int64)]
+        r = (np.uint64(2) * key + np.uint64(32 - j)) & np.uint64(31)
+        rot = ((e >> r) | (e << ((np.uint64(32) - r) & np.uint64(31)))) & M32
+        hits |= rot & np.uint64(3 << j)
+    if dirty.any():
+        hits[dirty] = wid_run(bufs, t[dirty], p[dirty], s, (0, m, bits),
+                              bitmap.numpy())
+    if thr >= 0:
+        r = np.zeros(len(p), np.uint64)
+        for j in range(48):
+            r |= (_byte_of(w, j) >= np.uint64(thr)).astype(np.uint64) \
+                << np.uint64(j)
+        r >>= np.uint64(LEAD + 1 - m)
+        c = 1
+        while c < m:
+            step = min(c, m - c)
+            r |= r >> np.uint64(step)
+            c += step
+        hits &= ~r & M32
+    return hits
 
 
 def run_hits(text, bitmap, m, sigma, guard, shift):
@@ -50,15 +104,21 @@ def run_hits(text, bitmap, m, sigma, guard, shift):
     start): the rolling id's mask, ANDed with the guard's where sigma <
     256, the last run cut to its valid starts."""
     n_starts = len(text) - m + 1
-    bufs = _tile_buffers(text, shift, m, tile=TILE)
-    starts = np.arange(len(bufs) * TILE // RUN) * RUN
+    bits = bits_per_char(sigma)
+    pairs = cf.exact_pairs(m, bits, len(bitmap))
+    tile = kc.EXACT_PAIR_TILE if pairs else kc.EXACT_TILE
+    bufs = _tile_buffers(text, shift, m, tile=tile)
+    starts = np.arange(len(bufs) * tile // RUN) * RUN
     live = starts < n_starts
     i0 = starts[live]
-    t, p = i0 // TILE, shift + i0 % TILE
-    hits = wid_run(bufs, t, p, shift, (0, m, bits_per_char(sigma)),
-                   bitmap.numpy())
-    if guard and sigma < 256:
-        hits &= guard_run(bufs, t, p, shift, m, max(sigma, 0))
+    t, p = i0 // tile, shift + i0 % tile
+    thr = max(sigma, 0) if guard and sigma < 256 else -1
+    if pairs:
+        hits = pair_run(bufs, t, p, shift, m, bits, bitmap, thr)
+    else:
+        hits = wid_run(bufs, t, p, shift, (0, m, bits), bitmap.numpy())
+        if thr >= 0:
+            hits &= guard_run(bufs, t, p, shift, m, thr)
     valid = n_starts - i0
     short = valid < RUN
     hits[short] &= (U1 << valid[short].astype(np.uint64)) - U1
@@ -90,9 +150,10 @@ def _assert_mirror_equals_plain(text, bitmap, m, sigma, shift):
     return got["count"] - got["guarded"]
 
 
-#: (sigma, m): m*bits up to 16 at sigma 2, 4, 20 and 256
-MIRROR_CASES = [(2, 16), (2, 1), (4, 8), (4, 2), (20, 3), (20, 2), (256, 2),
-                (256, 1)]
+#: (sigma, m): m*bits up to 16 at sigma 2, 4, 8, 20 and 256; the pair path
+#: at every shape but (20, 3) and (256, 2)
+MIRROR_CASES = [(2, 16), (2, 1), (4, 8), (4, 2), (8, 5), (20, 3), (20, 2),
+                (256, 2), (256, 1)]
 
 
 @pytest.mark.parametrize("sigma,m", MIRROR_CASES)

@@ -140,6 +140,19 @@ def test_compact_span_carries_its_path(fp_case, traced):
     assert profiling.summary()["tsm.compact"]["paths"] == {"torch": 2}
 
 
+def test_exact_span_carries_its_kernel_path(exact_case, traced):
+    """The exact tier's tsm.exact span says whether the kernel took the
+    pair path: 0 on the CPU (the plain version runs), and summary() counts
+    the calls by it."""
+    text, eng, truth = exact_case
+    assert eng.count(text) == truth
+    assert eng.count(text) == truth
+    exacts = [s for r in profiling.requests(last=2) for s in r
+              if s.name == "tsm.exact"]
+    assert [s.attrs["pairs"] for s in exacts] == [0, 0]
+    assert profiling.summary()["tsm.exact"]["pairs"] == {0: 2}
+
+
 def test_the_store_is_bounded_and_keeps_whole_requests(exact_case, traced,
                                                        monkeypatch):
     """The oldest spans leave a full store; a request that lost one is

@@ -8,7 +8,10 @@ card, in one process, interleaved, on bench.py's 256 MiB DNA corpus
                 size after its first overflow (FastScanner._drive), each a
                 view at an odd address
   exact_count_guard  the guarded exact count (tsm_exact_count, guard=1),
-                m=8 p=10k, on the text + m-1 pad bytes as core() calls it
+                m=8 p=10k, on the text + m-1 pad bytes as core() calls it;
+                and the exact kernels also at sigma 8 (m=5) and sigma 20
+                (m=2 and m=3), each on a 256 MiB text over that alphabet
+                (text seed 7, p=10k with pattern seed 8)
   cascade       the cascade (tsm_cascade) at m=16 p=10k, m=32 p=10k, m=32
                 p=30k and m=32 p=100k, each with its route's (k1, kt); with
                 --widths, each tier's tables at every stage width from
@@ -37,6 +40,8 @@ card, in one process, interleaved, on bench.py's 256 MiB DNA corpus
     python3 -m tpu_smatcher_torch.ab_cascade OTHER_CHECKOUT [...] [--reps N]
         [--kernels NAME ...]
     python3 -m tpu_smatcher_torch.ab_cascade checkout/parent --kernels stages
+    python3 -m tpu_smatcher_torch.ab_cascade checkout/parent
+        --kernels exact_count exact_count_guard exact_mask
     python3 -m tpu_smatcher_torch.ab_cascade --widths [OTHER_CHECKOUT ...]
 
 Each checkout's csrc source of a kernel is built with this checkout's nvcc
@@ -70,6 +75,9 @@ KERNELS = {"exact_count": ("exact_count.cu", "tsm_exact_count"),
 #: bench.py's tiers: (name, m, p)
 TIERS = (("exact", 8, 10_000), ("fp16", 16, 10_000), ("fp", 32, 10_000),
          ("fp32_p30k", 32, 30_000), ("fp32_p100k", 32, 100_000))
+#: (sigma, m) of the exact kernels' other alphabets: the pair table's
+#: widest gram at sigma 8, one within it and one past it at sigma 20
+EXACT_ALPHABETS = ((8, 5), (20, 2), (20, 3))
 #: the stage widths --widths times the cascade at
 SWEEP_WIDTHS = (16384, 32768, 65536, 131072, 262144)
 #: the filter kernels' inputs: (name, kernel)
@@ -510,7 +518,8 @@ def main(argv=None) -> int:
         if kernel in builds:
             compare(builds[kernel], f"tier {name} (p={p})",
                     f"{kernel} {shape} n=2^28", launch, args.reps)
-    if {"exact_mask", "exact_count_guard"} & set(builds):
+    exact = {"exact_count", "exact_mask", "exact_count_guard"} & set(builds)
+    if exact - {"exact_count"}:
         pats = datagen.generate_patterns(text, 10_000, 8, ab,
                                          frac_present=0.5, seed=8)
         eng = FastScanner(build_fast(pats.codes, 4, device="cuda"))
@@ -518,6 +527,21 @@ def main(argv=None) -> int:
             if kernel in builds:
                 compare(builds[kernel], f"exact {cell}", f"{kernel} {shape}",
                         launch, args.reps)
+    for sigma, m in EXACT_ALPHABETS if exact else ():
+        abs_ = Alphabet.of_size(sigma)
+        txt = datagen.generate_text(n, abs_, seed=7)
+        ts = torch.from_numpy(txt).cuda()
+        pats = datagen.generate_patterns(txt, 10_000, m, abs_,
+                                         frac_present=0.5, seed=8)
+        eng = FastScanner(build_fast(pats.codes, sigma, device="cuda"))
+        cells = [("exact_count", "text", launcher(ts, eng)[1:])]
+        cells += [(k, c, (shape, launch))
+                  for k, c, shape, launch in exact_launchers(ts, eng)]
+        for kernel, cell, (shape, launch) in cells:
+            if kernel in builds:
+                compare(builds[kernel], f"exact sigma={sigma} {cell}",
+                        f"{kernel} {shape}", launch, args.reps)
+        del ts
     for cell, kernel in CELLS:
         if kernel not in builds:
             continue

@@ -31,9 +31,11 @@ from .ops.cuda_engines import EngineFastPath
 from .ops.fast import STAGE_CD, build_fast
 
 #: stages.cu's run (consecutive starts per thread) and tile (starts per
-#: block iteration, one slot sub-block); exact_count.cu's
+#: block iteration, one slot sub-block); exact_count.cu's, and its tile on
+#: the pair path (512 threads a block)
 STAGES_RUN, STAGES_TILE = 32, 16384
 EXACT_RUN, EXACT_TILE = 32, 8192
+EXACT_PAIR_TILE = 16384
 #: cascade.cu's run (consecutive starts per thread: one 128-start row) and
 #: its tile (starts per block iteration) at both of its shapes: a p=10k
 #: table's two 131,072-bit phase-1 stages (256 threads, a row each) and
@@ -68,6 +70,13 @@ def edge_starts(run, tile):
     and its tile of starts per block iteration."""
     return sorted({run - 1, run, run + 1, tile - 1, tile, tile + 1,
                    2 * tile + run + 1})
+
+
+def exact_edge_starts():
+    """Start counts around the exact kernel's runs and tiles, on both of
+    its paths."""
+    return sorted(set(edge_starts(EXACT_RUN, EXACT_TILE))
+                  | set(edge_starts(EXACT_RUN, EXACT_PAIR_TILE)))
 
 
 def cascade_edge_starts():
@@ -153,8 +162,13 @@ def generic_chains(sigma, m, codes, fp_tables):
 
 #: (sigma, m) of the exact kernels' edge cases: DNA at the bench tier's m,
 #: sigma 2 at m = 16 (m*bits = 16), sigma 20 (bytes in [20, 32) are dropped
-#: by the guard but roll as clean bytes), sigma 256 (no guard work) and m = 1
-EXACT_EDGE_CASES = [(4, 8), (2, 16), (20, 3), (256, 2), (4, 1)]
+#: by the guard but roll as clean bytes), sigma 256 (no guard work) and m = 1;
+#: for the pair path (exact_count.cu: (m+1)-grams of at most 18 bits) its
+#: widest grams at 1, 2, 3 and 8 bits a byte (sigma 2 m = 16, DNA m = 8,
+#: sigma 8 m = 5, sigma 256 m = 1), a table of one word (DNA m = 1), and
+#: two shapes past it, which take the bitmap (sigma 20 m = 3, sigma 256 m = 2)
+EXACT_EDGE_CASES = [(4, 8), (2, 16), (20, 3), (256, 2), (4, 1), (8, 5),
+                    (256, 1)]
 
 
 def exact_edge_case(sigma, m, device):
@@ -169,7 +183,7 @@ def exact_edge_case(sigma, m, device):
     bits = max(1, (sigma - 1).bit_length())
     nbits = max(4096, 1 << (m * bits))
     bitmap = torch.from_numpy(random_stages(1, nbits, 0.5, seed=m)[0])
-    starts = sorted(set(edge_starts(EXACT_RUN, EXACT_TILE))
+    starts = sorted(set(exact_edge_starts())
                     | {127, 128, 129, EXACT_PIECE + 5, 1})
     rng = np.random.default_rng(sigma + m)
     text = rng.integers(0, sigma, max(starts) + m + 16).astype(np.uint8)

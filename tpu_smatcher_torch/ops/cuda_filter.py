@@ -70,6 +70,13 @@ LAUNCHES = {"exact_count": 0, "exact_count_guard": 0, "exact_mask": 0,
 #: calls on the card of the wrappers that replace no TPU kernel, by the
 #: function each replaces
 EPILOGUE_LAUNCHES = {"compact_valrows": 0, "verify": 0}
+#: exact_count and exact_mask launches by the path their kernel took:
+#: "pairs" (one lookup in the pair table for two starts) or "bitmap" (one
+#: bitmap lookup a start); apart from LAUNCHES
+EXACT_PATHS = {"pairs": 0, "bitmap": 0}
+#: widest (m+1)-gram id, in bits, for which csrc/exact_count.cu builds its
+#: pair table (2^18 entries of 2 bits: 64 KB of shared memory)
+PAIR_BITS = 18
 
 
 def _check(text: torch.Tensor, tables: torch.Tensor, tables_ndim: int):
@@ -118,6 +125,18 @@ def _check_exact(text, bitmap, m, sigma):
     return bits
 
 
+def exact_pairs(m: int, bits: int, nwords: int) -> bool:
+    """Whether csrc/exact_count.cu takes its pair path at these shapes
+    (its pairs_fit): the (m+1)-gram ids fit PAIR_BITS bits and the bitmap
+    of nwords words covers every window id."""
+    return bits * (m + 1) <= PAIR_BITS and nwords * 32 >= 1 << (m * bits)
+
+
+def _count_path(m, bits, bitmap):
+    EXACT_PATHS["pairs" if exact_pairs(m, bits, int(bitmap.shape[0]))
+                else "bitmap"] += 1
+
+
 def exact_count(text: torch.Tensor, bitmap: torch.Tensor, *, m: int,
                 sigma: int, guard: bool = False) -> torch.Tensor:
     """Number of starts i < n-m+1 whose packed window id hits `bitmap`
@@ -140,6 +159,7 @@ def exact_count(text: torch.Tensor, bitmap: torch.Tensor, *, m: int,
     name = "exact_count_guard" if guard else "exact_count"
     _raise_on(rc, name)
     LAUNCHES[name] += 1
+    _count_path(m, bits, bitmap)
     return out
 
 
@@ -169,6 +189,43 @@ def exact_count_plain(text: torch.Tensor, bitmap: torch.Tensor, *, m: int,
     return total.to(torch.int32)
 
 
+def exact_pair_table_plain(bitmap: torch.Tensor, m: int,
+                           bits: int) -> torch.Tensor:
+    """The pair table csrc/exact_count.cu builds from the bitmap when
+    exact_pairs holds: for each (m+1)-gram id g of gb = bits*(m+1) bits, bit
+    0 = bitmap bit g >> bits (the window at the gram's first byte) and bit
+    1 = bitmap bit g mod 2^(m*bits) (the window one byte on), 16 entries a
+    word (entry g at bits 2*(g % 16) of word g // 16), as (max(1,
+    2^(gb-4)),) int32; a table of fewer than 16 entries repeats them (entry
+    e holds entry e mod 2^gb)."""
+    gb = bits * (m + 1)
+    g = torch.arange(max(16, 1 << gb), device=bitmap.device) % (1 << gb)
+    entry = bitmap_test(bitmap, g >> bits) \
+        | bitmap_test(bitmap, g % (1 << (m * bits))) << 1
+    shifts = 2 * torch.arange(16, device=bitmap.device)
+    words = (entry.view(-1, 16) << shifts).sum(dim=1)        # below 2^32
+    return (words - ((words >> 31) << 32)).to(torch.int32)
+
+
+def exact_pair_count_plain(text: torch.Tensor, table: torch.Tensor, *,
+                           m: int, sigma: int,
+                           guard: bool = False) -> torch.Tensor:
+    """exact_count_plain's count read through the pair table as the pair
+    path's clean runs read it: one entry for starts 2k and 2k+1, at the
+    (m+1)-gram of bytes 2k .. 2k+m (a zero byte past the text's end).
+    Text of bytes below 2^bits (the pair path's other runs take the bitmap
+    a start); plain torch, any device, one piece."""
+    bits = bits_per_char(sigma)
+    n_starts = max(0, int(text.shape[0]) - m + 1)
+    ext = torch.cat([text, text.new_zeros(1)])
+    g = wid_keys(ext, m + 1, bits)[:n_starts:2]
+    entry = (table.to(torch.int64)[g >> 4] >> (2 * (g & 15))) & 3
+    hit = torch.stack([entry & 1, entry >> 1], dim=1).reshape(-1)[:n_starts]
+    if guard:
+        hit = hit & (max_keys(text, m) < sigma)
+    return hit.sum().to(torch.int32)
+
+
 def exact_mask(text: torch.Tensor, bitmap: torch.Tensor, *, m: int,
                sigma: int) -> torch.Tensor:
     """Per-start match mask of the exact tier, pad-guarded:
@@ -194,6 +251,7 @@ def exact_mask(text: torch.Tensor, bitmap: torch.Tensor, *, m: int,
                             mask.data_ptr(), rows, dev, stream)
     _raise_on(rc, "exact_mask")
     LAUNCHES["exact_mask"] += 1
+    _count_path(m, bits, bitmap)
     return mask
 
 

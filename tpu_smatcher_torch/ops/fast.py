@@ -757,9 +757,14 @@ class FastScanner:
 
     def _exact_count(self, text, guard: bool = False):
         """The exact tier's count (0-d int32 on the device), as span
-        tsm.exact."""
+        tsm.exact; its attribute `pairs` is 1 where the kernel took the
+        pair path (cuda_filter.exact_pairs on the card), else 0."""
         ft = self.ft
-        with span("tsm.exact"):
+        with span("tsm.exact") as sp:
+            if sp:
+                pairs = cuda_filter.exact_pairs(ft.m, bits_per_char(ft.sigma),
+                                                int(ft.bitmaps[0].shape[0]))
+                sp.attrs["pairs"] = int(text.is_cuda and pairs)
             return cuda_filter.exact_count(text, ft.bitmaps[0], m=ft.m,
                                            sigma=ft.sigma, guard=guard)
 

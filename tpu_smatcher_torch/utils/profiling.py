@@ -142,10 +142,11 @@ class Record(typing.NamedTuple):
 
 class Span:
     """An open span (span() returns it while tracing is on).  On exit it
-    stores its Record's fields as a plain tuple of ints, strings and
-    tuples of them (its attrs as pairs), which the cyclic garbage
-    collector stops tracking: a full store costs the rest of the program
-    no collection time."""
+    stores its Record's fields as one flat tuple of ints and strings, its
+    attrs last as name, value, name, value ..., which the cyclic garbage
+    collector stops tracking at its first collection (a tuple holding
+    tuples may take two): a full store costs the rest of the program no
+    collection time."""
 
     __slots__ = ("name", "id", "parent", "request", "root", "t0_ns",
                  "attrs", "_device", "_events", "_range")
@@ -197,7 +198,7 @@ class Span:
             self._range = None
         _store.append((self.id, self.parent, self.request, self.root,
                        self.name, self.t0_ns, t1,
-                       tuple(self.attrs.items()) if self.attrs else ()))
+                       *(sum(self.attrs.items(), ()) if self.attrs else ())))
         if self.name in _READ_BACKS:
             _resolve()
         return False
@@ -231,7 +232,8 @@ def _resolve() -> None:
 
 
 def _record(rec: tuple) -> Record:
-    return Record(*rec[:7], dict(rec[7]), _device_ms.get(rec[0]))
+    return Record(*rec[:7], dict(zip(rec[7::2], rec[8::2])),
+                  _device_ms.get(rec[0]))
 
 
 def clear() -> None:
@@ -267,15 +269,16 @@ def requests(last: int) -> list:
 
 
 #: span attributes whose calls summary() counts by value: (attr, key)
-_COUNTED_ATTRS = (("path", "paths"), ("bits", "bits"))
+_COUNTED_ATTRS = (("path", "paths"), ("bits", "bits"), ("pairs", "pairs"))
 
 
 def summary() -> dict:
     """{span name: {calls, host_ms, self_ms, device_ms}} over the store:
     host ms summed, self ms the spans less their children's host ms,
     device ms summed over the spans that have it (None where none has);
-    a name whose spans carry a `path` or a `bits` attribute (tsm.route's
-    stage width) also gets `paths` or `bits`, the calls by its value."""
+    a name whose spans carry a `path`, a `bits` (tsm.route's stage width)
+    or a `pairs` attribute (tsm.exact's kernel path) also gets `paths`,
+    `bits` or `pairs`, the calls by its value."""
     _resolve()
     spans = [_record(rec) for rec in _store]
     child_ms = collections.Counter()
